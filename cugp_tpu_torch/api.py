@@ -1,0 +1,157 @@
+"""User-facing API facade, as ``cugp_tpu/api.py``'s ``GP`` (dense part).
+
+``GP`` runs where its ``device`` says: data, hyperparameters and every
+kernel launch live there. Nothing looks for a GPU on its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from cugp_tpu_torch.models import exact_gp
+from cugp_tpu_torch.ops import kernels as kernel_ops
+from cugp_tpu_torch.utils.params import tree_map
+
+_NOT_PORTED = "not ported yet; see ROADMAP.md, slice 1"
+
+
+def _as_f32(a, device):
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+@dataclasses.dataclass
+class GP:
+    """Exact Gaussian-process regression.
+
+    kind: kernel family — 'rbf' | 'matern12' | 'matern32' | 'matern52' |
+        'rq' | 'periodic' | 'linear', or a '+'/'*' composite of them.
+    jitter: diagonal jitter (times signal variance) for PD safety.
+    method: 'auto' | 'pallas' — the CUDA kernels for a CUDA device, their
+        plain versions on the CPU.
+    device: where data, hyperparameters and computation live.
+    """
+
+    kind: str = "rbf"
+    jitter: float = 1e-6
+    method: str = "auto"
+    basis: Optional[str] = None
+    normalize_y: bool = False
+    device: Any = "cpu"
+    params: Optional[dict] = None
+    X: Optional[Any] = None
+    y: Optional[Any] = None
+    y_mean: float = 0.0
+    y_std: float = 1.0
+
+    def __post_init__(self):
+        kernel_ops.validate_kind(self.kind)
+        kernel_ops.check_method(self.method)
+        if self.basis is not None:
+            raise NotImplementedError(f"basis={self.basis!r} is {_NOT_PORTED}")
+        self.device = torch.device(self.device)
+
+    def _data(self, X, y):
+        """Validate; with normalize_y, standardize targets and record the
+        stats. self.y is always the internal (standardized) targets."""
+        X = _as_f32(X, self.device)
+        y = _as_f32(y, self.device)
+        if X.ndim != 2:
+            raise ValueError(f"X must be (n, d), got shape {tuple(X.shape)}")
+        if y.ndim != 1 or y.shape[0] != X.shape[0]:
+            raise ValueError(f"y must be (n,) matching X (n={X.shape[0]}), "
+                             f"got {tuple(y.shape)}")
+        if self.normalize_y:
+            self.y_mean = float(torch.mean(y))
+            self.y_std = max(float(torch.std(y, correction=0)), 1e-12)
+            y = (y - self.y_mean) / self.y_std
+        return X, y
+
+    def _out_mean(self, mu):
+        return mu * self.y_std + self.y_mean if self.normalize_y else mu
+
+    def _out_var(self, v):
+        return v * (self.y_std ** 2) if self.normalize_y else v
+
+    def _out_lml(self, lml):
+        """log p(y) = log p(y_std) - n log(sigma_y)."""
+        if not self.normalize_y:
+            return lml
+        return lml - self.y.shape[0] * math.log(self.y_std)
+
+    def _params(self, params):
+        """Tensors on this GP's device; numpy/jax leaves become fp32."""
+        return tree_map(lambda v: _as_f32(v, self.device), params)
+
+    def fit(self, X, y, *, steps=200, optimizer="adam", learning_rate=0.05,
+            init=None, key=None, log_prior=None, objective="lml",
+            restarts=1):
+        """MAP hyperparameter fit by maximizing the LML with Adam
+        (inference/map_opt). Returns the info dict ("loss", "lml")."""
+        from cugp_tpu_torch.inference import map_opt
+
+        if restarts > 1:
+            raise NotImplementedError(f"restarts > 1 is {_NOT_PORTED}")
+        X, y = self._data(X, y)
+        if init is None:
+            init = kernel_ops.default_init(self.kind, d=X.shape[1],
+                                           device=self.device)
+        params, info = map_opt.fit(
+            self._params(init), X, y, kind=self.kind, jitter=self.jitter,
+            method=self.method, steps=steps, optimizer=optimizer,
+            learning_rate=learning_rate, basis=self.basis,
+            log_prior=log_prior, objective=objective)
+        self.params, self.X, self.y = params, X, y
+        return info
+
+    def condition(self, X, y, params=None):
+        """Attach data (and optionally hyperparameters) without fitting."""
+        self.X, self.y = self._data(X, y)
+        if params is not None:
+            self.params = self._params(params)
+        elif self.params is None:
+            self.params = kernel_ops.default_init(
+                self.kind, d=self.X.shape[1], device=self.device)
+        return self
+
+    @torch.no_grad()
+    def log_marginal_likelihood(self, params=None):
+        p = self._params(params) if params is not None else self.params
+        lml = exact_gp.log_marginal_likelihood(
+            p, self.X, self.y, kind=self.kind, jitter=self.jitter,
+            method=self.method)
+        return self._out_lml(lml)
+
+    @torch.no_grad()
+    def predict(self, Xs, *, include_noise=False, full_cov=False,
+                batch=4096):
+        """Posterior mean/variance at Xs, in test batches of `batch` rows
+        against one factorization (full_cov: the full covariance)."""
+        Xs = _as_f32(Xs, self.device)
+        if full_cov:
+            if include_noise:
+                raise ValueError("full_cov returns the latent posterior "
+                                 "covariance; include_noise applies to "
+                                 "the diagonal path only")
+            mu, cov = exact_gp.posterior_full_cov(
+                self.params, self.X, self.y, Xs, kind=self.kind,
+                jitter=self.jitter, method=self.method)
+            return self._out_mean(mu), self._out_var(cov)
+        L, alpha = exact_gp._factorize(self.params, self.X, self.y,
+                                       self.kind, self.jitter, self.method)
+        mus, vars_ = [], []
+        for lo in range(0, Xs.shape[0], batch):
+            mu, var = exact_gp.predict_from_factor(
+                self.params, self.X, L, alpha, Xs[lo:lo + batch],
+                kind=self.kind, method=self.method,
+                include_noise=include_noise)
+            mus.append(mu)
+            vars_.append(var)
+        return (self._out_mean(torch.cat(mus)),
+                self._out_var(torch.cat(vars_)))

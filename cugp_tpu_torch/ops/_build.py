@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, at first use, into ``cugp_tpu_torch/_build/``. The file name
+carries a hash of the sources and flags, so an edit rebuilds. The library
+is loaded with ``ctypes``; pointers and the stream travel as ``c_void_p``.
+Nothing here runs at import, so machines without ``nvcc`` import every
+module; a failed build raises with nvcc's stderr.
+
+Each kernel's Python wrapper keeps a plain int ``LAUNCHES`` that it bumps
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures of csrc/*.cu (every launcher returns its cudaError_t)
+_SIGNATURES = {
+    # x1, x2, scal, out, m, n, d, ldo, kind, square, n1_true, n2_true, stream
+    "cugp_cov": [_p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],
+    # a, lda, batch_stride, n, batch, stream
+    "cugp_potrf": [_p, _ll, _ll, _i, _i, _p],
+    # l, ldl, b, row_stride, col_stride, n, k, transpose, stream
+    "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p],
+}
+
+_lib = None
+
+
+def nvcc_path():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under /usr/local/cuda")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path():
+    """Where the library for the current sources lives (built or not)."""
+    cus, cuhs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cus + cuhs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libcugp_{h.hexdigest()[:16]}.so"
+
+
+def build():
+    """Compile csrc/*.cu if this source hash has no library yet."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cus, _ = _sources()
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.cugp_error_string.argtypes = [ctypes.c_int]
+        handle.cugp_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err, name):
+    """Raise if a launcher returned a CUDA error."""
+    if err != 0:
+        msg = lib().cugp_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def stream_of(t):
+    """PyTorch's current CUDA stream on t's device, as a pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

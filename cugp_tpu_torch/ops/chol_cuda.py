@@ -1,0 +1,66 @@
+"""Diagonal-block Cholesky — the CUDA kernel ``csrc/potrf.cu`` and its twin.
+
+Replaces ``cugp_tpu/ops/chol_pallas.py::_potrf_kernel``, the base case of
+the recursive factorization. Unlike the Pallas kernel (n % 128 == 0,
+block held in VMEM) it takes any n <= 1024 and factors a diagonal block
+of the caller's buffer in place, reading only the lower triangle. On the
+H100 it runs on one SM per block, serial over 32-wide panels, with the
+block in global memory (L2-resident) and the panel in shared memory; it
+is expected to trail cuSOLVER, whose potrf serves only as the plain
+version here.
+
+``potrf_`` launches the kernel for CUDA tensors and writes ``potrf_plain``
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cugp_tpu_torch.ops import _build
+
+MAX_N = 1024
+LAUNCHES = 0  # kernel launches by potrf_ (plain CPU calls do not count)
+
+
+def potrf_plain(a):
+    """Lower Cholesky of the block whose lower triangle is ``a``'s; NaN
+    throughout a block that is not positive definite (as the kernel, and
+    as XLA's cholesky, signal failure)."""
+    lower = torch.tril(a)
+    L, info = torch.linalg.cholesky_ex(lower + torch.tril(lower, -1).mT)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def potrf_(a):
+    """Factor a (n, n) or (B, n, n) block in place: lower L, zeros above.
+
+    A non-PD block gives NaN (never a clamped factor). For a CUDA tensor
+    this launches the kernel or raises.
+    """
+    global LAUNCHES
+    n = a.shape[-1]
+    if a.ndim not in (2, 3) or a.shape[-2] != n:
+        raise ValueError(f"potrf_ takes (n, n) or (B, n, n), got "
+                         f"{tuple(a.shape)}")
+    if a.device.type != "cuda":
+        a.copy_(potrf_plain(a))
+        return a
+    if a.dtype != torch.float32 or n > MAX_N or a.stride(-1) != 1:
+        raise ValueError(f"potrf_ kernel takes float32 blocks with n <= "
+                         f"{MAX_N} and unit column stride, got {a.dtype} "
+                         f"{tuple(a.shape)} strides {a.stride()}")
+    batch = a.shape[0] if a.ndim == 3 else 1
+    batch_stride = a.stride(0) if a.ndim == 3 else 0
+    lib = _build.lib()
+    with torch.cuda.device(a.device):
+        err = lib.cugp_potrf(a.data_ptr(), a.stride(-2), batch_stride, n,
+                             batch, _build.stream_of(a))
+    _build.check(err, "potrf")
+    LAUNCHES += 1
+    return a
+
+
+def potrf(a):
+    """Out-of-place potrf_: the lower factor of a copy of ``a``."""
+    return potrf_(a.clone(memory_format=torch.contiguous_format))

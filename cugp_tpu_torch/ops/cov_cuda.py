@@ -1,0 +1,127 @@
+"""Covariance tile — the CUDA kernel ``csrc/cov.cu`` and its twin.
+
+Replaces ``cugp_tpu/ops/cov_pallas.py::_cov_kernel``. On the H100 the build
+is bound by the N^2 fp32 store at d <= 32 (4.29 GB at N = 32768); the
+kernel writes 64x64 tiles whose warps store full 128-byte row segments,
+straight into an exactly m x n output (no padding, no crop copy).
+
+``cov_tile`` launches the kernel for CUDA tensors and runs ``cov_tile_plain``
+(the same formulas in torch ops) for CPU tensors. ``CovTile`` is the
+autograd Function around it: forward launches the kernel, backward is the
+VJP of the plain tile function recomputed on the same inputs — the
+counterpart of the custom VJPs at ``cugp_tpu/ops/kernels.py:347-400``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cugp_tpu_torch.ops import _build
+
+KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3,
+              "rq": 4, "linear": 5}
+
+LAUNCHES = 0  # kernel launches by cov_tile (plain CPU calls do not count)
+
+
+def kernel_fn_plain(d2, kind, alpha):
+    """Unit-amplitude kernel value of a scaled squared distance."""
+    if kind == "rbf":
+        return torch.exp(-0.5 * d2)
+    if kind == "rq":
+        return torch.exp(-alpha * torch.log1p(d2 / (2.0 * alpha)))
+    # min d2 before the sqrt (the JAX package's _R2_EPS): a finite
+    # gradient at r = 0
+    r = torch.sqrt(torch.clamp(d2, min=1e-12))
+    if kind == "matern12":
+        return torch.exp(-r)
+    if kind == "matern32":
+        s = 3.0 ** 0.5 * r
+        return (1.0 + s) * torch.exp(-s)
+    if kind == "matern52":
+        s = 5.0 ** 0.5 * r
+        return (1.0 + s + (s * s) / 3.0) * torch.exp(-s)
+    raise ValueError(f"unknown kernel kind: {kind}")
+
+
+def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
+    """The covariance tile in torch ops (cov_pallas._cov_kernel's formulas).
+
+    xs1 (m, d), xs2 (n, d): rows already divided by the lengthscale.
+    scal: (3,) tensor [sf2, diag_add, alpha]. Rows >= n1_true / cols >=
+    n2_true follow the padding contract (identity block when square,
+    zeros otherwise).
+    """
+    sf2, diag_add, alpha = scal[0], scal[1], scal[2]
+    cross = xs1 @ xs2.T
+    if kind == "linear":
+        k = sf2 * cross + alpha
+    else:
+        s1 = torch.sum(xs1 * xs1, dim=-1)[:, None]
+        s2 = torch.sum(xs2 * xs2, dim=-1)[None, :]
+        if kind == "rbf":
+            k = sf2 * torch.exp(cross - 0.5 * s1 - 0.5 * s2)
+        else:
+            d2 = torch.clamp(s1 + s2 - 2.0 * cross, min=0.0)
+            k = sf2 * kernel_fn_plain(d2, kind, alpha)
+    m, n = k.shape
+    rows = torch.arange(m, device=k.device)[:, None]
+    cols = torch.arange(n, device=k.device)[None, :]
+    pad = (rows >= n1_true) | (cols >= n2_true)
+    if square:
+        diag = rows == cols
+        k = k + torch.where(diag, diag_add, 0.0)
+        k = torch.where(pad, diag.to(k.dtype), k)
+    else:
+        k = torch.where(pad, 0.0, k)
+    return k
+
+
+def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true):
+    """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU."""
+    global LAUNCHES
+    if kind not in KIND_CODES:
+        raise ValueError(f"cov_tile takes base families {tuple(KIND_CODES)}"
+                         f" (periodic via the rbf view), got {kind!r}")
+    if xs1.device.type != "cuda":
+        return cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true)
+    for name, t in (("xs1", xs1), ("xs2", xs2), ("scal", scal)):
+        if t.dtype != torch.float32 or t.device != xs1.device:
+            raise ValueError(f"cov_tile: {name} must be float32 on "
+                             f"{xs1.device}, got {t.dtype} on {t.device}")
+    m, d = xs1.shape
+    n, d2 = xs2.shape
+    if d2 != d or scal.numel() != 3:
+        raise ValueError(f"cov_tile: shapes {tuple(xs1.shape)}, "
+                         f"{tuple(xs2.shape)}, scal {tuple(scal.shape)}")
+    xs1, xs2, scal = xs1.contiguous(), xs2.contiguous(), scal.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
+    lib = _build.lib()
+    with torch.cuda.device(xs1.device):
+        err = lib.cugp_cov(xs1.data_ptr(), xs2.data_ptr(), scal.data_ptr(),
+                           out.data_ptr(), m, n, d, out.stride(0),
+                           KIND_CODES[kind], int(square),
+                           min(int(n1_true), m), min(int(n2_true), n),
+                           _build.stream_of(xs1))
+    _build.check(err, "cov")
+    LAUNCHES += 1
+    return out
+
+
+class CovTile(torch.autograd.Function):
+    """cov_tile with the VJP of cov_tile_plain as its backward."""
+
+    @staticmethod
+    def forward(ctx, xs1, xs2, scal, kind, square, n1_true, n2_true):
+        ctx.save_for_backward(xs1, xs2, scal)
+        ctx.args = (kind, square, n1_true, n2_true)
+        return cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs1, xs2, scal = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (xs1, xs2, scal)]
+            k = cov_tile_plain(*ins, *ctx.args)
+            grads = torch.autograd.grad(k, ins, g)
+        return (*grads, None, None, None, None)
