@@ -2,21 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (cugp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --phases=2 --profile   # a subset; profile a fit step
 
 Phases, one line of output each (or a few), failing fast with exit 1:
   0. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, TF32 off;
-  1. build: nvcc compiles the three kernels under cugp_tpu_torch/csrc/;
+  1. build: nvcc compiles the kernels under cugp_tpu_torch/csrc/;
   2. kernels against their plain PyTorch versions on the card, at the
-     shapes of the main path: covariance tile, potrf, TRSM;
-  3. main path: GP(kind="rbf", device="cuda").fit / predict /
+     shapes of the main paths: covariance tile, potrf, TRSM and the fused
+     covariance matvec, each beside its bound and, where one exists, the
+     one PyTorch call that computes the same function;
+  3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against a float64 scipy posterior, with each kernel's launch
      counter read around the run;
   4. north-star shape: covariance + Cholesky at N=32768, d=8, gated on
-     the reconstruction error of the first 4096 rows.
+     the reconstruction error of the first 4096 rows;
+  5. matrix-free path at N=100,000, d=4: GP.fit_iterative (3 steps after
+     a warm-up step), predict_iterative (128 test points, gated on the
+     mean solve's residual recomputed without the kernel) and
+     log_marginal_likelihood_iterative, launch counters read around
+     them; then, on the first 16,384 rows, the iterative posterior and
+     LML against the dense path. --profile adds one torch.profiler fit
+     step at N=100,000 and prints its device time by kernel.
 The line before the last is a JSON object with each kernel's launches,
-error against its plain version and times; the last line is
+error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits 1 and prints no result.
 """
@@ -31,6 +41,19 @@ import sys
 import time
 
 import numpy as np
+
+
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(nbytes, flops):
+    """(least ms the card could take, what bounds it): bytes moved once
+    over the HBM rate, or fp32 operations over the non-tensor peak."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
+    return ((1e3 * t_bytes, "bytes") if t_bytes >= t_ops
+            else (1e3 * t_ops, "operations"))
 
 
 def fail(msg):
@@ -166,7 +189,117 @@ def phase_cov(torch, dev, results):
                                                        8000, 8000))
     say("cov", shape="8000x8000 d=4 rbf", kernel_ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", max_abs_err=f"{worst:.3e}")
-    results["cov"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    b_ms, b_by = bound(4 * (2 * 8000 * 4 + 8000 ** 2),
+                       8000 ** 2 * (2 * 4 + 3))
+    results["cov"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _matvec_bound(n, d, r):
+    """Each entry of K: 2d flops of cross term, 3 of exponent, 2r of
+    contraction; the bytes are X and V read once and the output written
+    once."""
+    return bound(4 * (n * d + 2 * n * r), n * n * (2 * d + 3 + 2 * r))
+
+
+def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
+    from cugp_tpu_torch.ops import cov_matvec_cuda as cm
+    from cugp_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(4)
+    rel_bar = 1e-4
+    worst = worst_rel = 0.0
+    V = torch.as_tensor(rng.standard_normal((n, 129)), dtype=torch.float32,
+                        device=dev)
+
+    def matern12_slack(xs, sf2, v):
+        """|K error| near coincident points is up to sf2 sqrt(8 eps
+        (s1 + s2)) (see phase_cov); each output sums it against |v|."""
+        s12 = ((xs * xs).sum(1)[:, None] + (xs * xs).sum(1)[None, :])
+        d2 = (s12 - 2.0 * xs @ xs.T).clamp(min=0.0)
+        slack = torch.where(d2 < 1e-2,
+                            sf2 * torch.sqrt(8 * 1.1920929e-07 * s12), 0.0)
+        return slack @ v.abs()
+
+    for kind in ("rbf", "matern12", "matern32", "matern52", "rq", "linear",
+                 "periodic"):
+        errs = []
+        for d in (4, 40):
+            X = torch.as_tensor(rng.uniform(-2, 2, (n, d)),
+                                dtype=torch.float32, device=dev)
+            if d == 40:
+                X = X / 4.0
+            if kind == "periodic":
+                p = {"log_lengthscale": torch.zeros(d, device=dev),
+                     "log_period": torch.full((d,), 0.5, device=dev)}
+                _, xs = kernels.periodic_rbf_view(p, X)
+                base = "rbf"
+            else:
+                xs, base = X, kind
+            extra = {"rq": 0.7, "linear": 0.3}.get(base, 1.0)
+            scal = torch.tensor([1.3, 0.1, extra], dtype=torch.float32,
+                                device=dev)
+            # strided column slices of one buffer, as CG passes sol[:, 1:]
+            for r, v in ((1, V[:, :1]), (9, V[:, 1:10]), (128, V[:, 1:])):
+                got = cm.cov_matvec(xs, v, scal, base, n)
+                again = cm.cov_matvec(xs, v, scal, base, n)
+                want = cm.cov_matvec_plain(xs, v, scal, base, n)
+                torch.cuda.synchronize()
+                tag = f"{kind} d={d} r={r}"
+                if got.shape != (n, r) or not torch.isfinite(got).all():
+                    fail(f"cov_matvec {tag}: shape {tuple(got.shape)} or "
+                         "non-finite")
+                if not torch.equal(got, again):
+                    fail(f"cov_matvec {tag}: two launches differ")
+                err = (got - want).abs()
+                scale = float(want.abs().max())
+                tol = rel_bar * scale
+                if kind == "matern12":
+                    tol = tol + matern12_slack(xs, 1.3, v)
+                if not bool((err <= tol).all()):
+                    fail(f"cov_matvec {tag}: max abs err "
+                         f"{float(err.max()):.3e} over {rel_bar} max|plain|"
+                         f" = {rel_bar * scale:.3e}")
+                worst = max(worst, float(err.max()))
+                worst_rel = max(worst_rel, float(err.max()) / scale)
+                errs.append(f"{float(err.max()) / scale:.2e}")
+        say("cov_matvec", kind=kind, n=n, rel_err_d4_r1_9_128_d40_r1_9_128=
+            ",".join(errs), bitwise_repeat=True)
+
+    # time at the main path's width: N = 100,000, d = 4, rbf
+    n, d = n_time, 4
+    X = torch.as_tensor(rng.uniform(-3, 3, (n, d)) / 0.6,
+                        dtype=torch.float32, device=dev)
+    scal = torch.tensor([0.3, 0.3, 1.0], dtype=torch.float32, device=dev)
+    out = {}
+    for r in (9, 128):
+        v = torch.as_tensor(rng.standard_normal((n, r)), dtype=torch.float32,
+                            device=dev)
+        got = cm.cov_matvec(X, v, scal, "rbf", n)
+        want = cm.cov_matvec_plain(X, v, scal, "rbf", n)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= rel_bar * scale:
+            fail(f"cov_matvec n={n} r={r}: max abs err {err:.3e} over "
+                 f"{rel_bar} max|plain| = {rel_bar * scale:.3e}")
+        del got, want
+        ms = cuda_ms(lambda: cm.cov_matvec(X, v, scal, "rbf", n), iters=5,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: cm.cov_matvec_plain(X, v, scal, "rbf", n),
+                           iters=2, warmup=1)
+        b_ms, b_by = _matvec_bound(n, d, r)
+        say("cov_matvec", shape=f"n={n} d={d} r={r} rbf",
+            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            rel_err=f"{err / scale:.3e}")
+        out[r] = (ms, plain_ms, b_ms, b_by, err)
+    ms, plain_ms, b_ms, b_by, _ = out[9]
+    results["cov_matvec"] = {
+        "max_abs_err": worst, "max_rel_err": worst_rel, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": f"n={n} d={d} r=9",
+        "r128_ms": out[128][0], "r128_plain_ms": out[128][1],
+        "r128_bound_ms": out[128][2]}
 
 
 def _spd(torch, n, dev, seed):
@@ -239,9 +372,14 @@ def phase_potrf(torch, dev, results):
     A = _spd(torch, 1024, dev, 11)
     ms = cuda_ms(lambda: chol_cuda.potrf(A))
     plain_ms = cuda_ms(lambda: chol_cuda.potrf_plain(A))
+    library_ms = cuda_ms(lambda: torch.linalg.cholesky(A))
+    b_ms, b_by = bound(4 * 2 * 1024 ** 2, 1024 ** 3 / 3)
     say("potrf", shape="1024", kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", max_abs_err=f"{worst:.3e}")
-    results["potrf"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+        bound_ms=f"{b_ms:.5f}", max_abs_err=f"{worst:.3e}")
+    results["potrf"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library_ms}
 
 
 def phase_trsm(torch, dev, results):
@@ -290,13 +428,28 @@ def phase_trsm(torch, dev, results):
     B = torch.randn(1024, 4096, generator=gen).to(dev)
     ms = cuda_ms(lambda: trsm_cuda.trsm(L, B))
     plain_ms = cuda_ms(lambda: trsm_cuda.trsm_plain(L, B))
+    library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+        L, B, upper=False))
     b1 = B[:, :1].contiguous()
     ms1 = cuda_ms(lambda: trsm_cuda.trsm(L, b1))
     plain_ms1 = cuda_ms(lambda: trsm_cuda.trsm_plain(L, b1))
+    # the preconditioner's solve: n = rank = 128, k = 1 + probes = 9
+    L128 = chol_cuda.potrf(_spd(torch, 128, dev, 12))
+    b9 = torch.randn(128, 9, generator=gen).to(dev)
+    ms128 = cuda_ms(lambda: trsm_cuda.trsm(L128, b9))
+    lib128 = cuda_ms(lambda: torch.linalg.solve_triangular(L128, b9,
+                                                           upper=False))
+    b_ms, b_by = bound(4 * (1024 ** 2 + 2 * 1024 * 4096), 1024 ** 2 * 4096)
     say("trsm", shape="n=1024 k=4096", kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", k1_kernel_ms=f"{ms1:.4f}",
-        k1_plain_ms=f"{plain_ms1:.4f}", max_abs_err=f"{worst:.3e}")
-    results["trsm"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+        bound_ms=f"{b_ms:.5f}", k1_kernel_ms=f"{ms1:.4f}",
+        k1_plain_ms=f"{plain_ms1:.4f}", n128_k9_kernel_ms=f"{ms128:.4f}",
+        n128_k9_library_ms=f"{lib128:.4f}", max_abs_err=f"{worst:.3e}")
+    results["trsm"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": library_ms, "k1_ms": ms1,
+                       "k1_plain_ms": plain_ms1, "n128_k9_ms": ms128,
+                       "n128_k9_library_ms": lib128}
 
 
 def _posterior64(params, X, y, Xs, jitter=1e-6):
@@ -324,10 +477,26 @@ def _posterior64(params, X, y, Xs, jitter=1e-6):
     return mu, var, lml
 
 
+def _wrappers():
+    from cugp_tpu_torch.ops import (chol_cuda, cov_cuda, cov_matvec_cuda,
+                                    trsm_cuda)
+
+    return {"cov": cov_cuda, "potrf": chol_cuda, "trsm": trsm_cuda,
+            "cov_matvec": cov_matvec_cuda}
+
+
+def reset_launches():
+    for mod in _wrappers().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {name: mod.LAUNCHES for name, mod in _wrappers().items()}
+
+
 def phase_main(torch, dev):
     import cugp_tpu_torch
     from cugp_tpu_torch.data import synthetic
-    from cugp_tpu_torch.ops import chol_cuda, cov_cuda, trsm_cuda
     from cugp_tpu_torch.utils.params import params_to_numpy
 
     X, y, _ = synthetic.multidim_regression(n=8000, d=4, seed=0)
@@ -336,7 +505,7 @@ def phase_main(torch, dev):
     # one warm-up step: library handles, kernel loads and the caching
     # allocator's first N^2 buffers are set-up, not step time
     cugp_tpu_torch.GP(kind="rbf", device=dev).fit(X, y, steps=1)
-    cov_cuda.LAUNCHES = chol_cuda.LAUNCHES = trsm_cuda.LAUNCHES = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gp = cugp_tpu_torch.GP(kind="rbf", device=dev)
@@ -348,8 +517,7 @@ def phase_main(torch, dev):
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
     lml = float(gp.log_marginal_likelihood())
-    launches = {"cov": cov_cuda.LAUNCHES, "potrf": chol_cuda.LAUNCHES,
-                "trsm": trsm_cuda.LAUNCHES}
+    launches = read_launches()
 
     loss = info["loss"].cpu().numpy()
     if not (np.isfinite(loss).all() and loss[-1] < loss[0]):
@@ -372,8 +540,8 @@ def phase_main(torch, dev):
     if not (err_mu <= 1e-3 and err_var <= 1e-3 and err_lml <= 1e-3):
         fail("main path: posterior/LML off the float64 reference by more "
              "than 1e-3")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("cov", "potrf", "trsm"):
+        if launches[name] <= 0:
             fail(f"main path: the {name} kernel was never launched")
     return launches
 
@@ -409,16 +577,192 @@ def phase_north_star(torch, dev):
         fail(f"north star: reconstruction relerr {relerr:.3e} (gate 2e-4)")
 
 
+def rff_gp_draw(n, d, ell, sf2, noise_std, seed=0, features=4096,
+                device="cpu", chunk=16384):
+    """y ~ GP(0, sf2 * rbf(ell)) + N(0, noise_std^2) by random Fourier
+    features (benchmarks/bench_fit_iterative.py's draw: the same numpy
+    draws in the same order). The (n, features) feature map is formed
+    in row chunks, in float64 on `device`, so memory stays bounded.
+    Returns (X, y) float32 numpy arrays."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3.0, 3.0, size=(n, d))
+    W = rng.standard_normal((d, features)) / ell
+    b = rng.uniform(0, 2 * np.pi, size=features)
+    w = rng.standard_normal(features)  # the feature map draws nothing
+    Xt, Wt, bt, wt = (torch.as_tensor(a, dtype=torch.float64, device=device)
+                      for a in (X, W, b, w))
+    scale = np.sqrt(2.0 * sf2 / features)
+    f = torch.cat([scale * torch.cos(Xt[lo:lo + chunk] @ Wt + bt) @ wt
+                   for lo in range(0, n, chunk)]).cpu().numpy()
+    y = f + noise_std * rng.standard_normal(n)
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def phase_matrix_free(torch, dev, profile=False, n=100_000, n_acc=16384):
+    import math
+
+    import cugp_tpu_torch
+    from cugp_tpu_torch.ops import cov_matvec_cuda, kernels
+
+    d = 4
+    truth = {"ell": 1.5, "sf2": 1.0, "sn2": 0.04}
+    t0 = time.perf_counter()
+    X, y = rff_gp_draw(n, d, truth["ell"], truth["sf2"],
+                       math.sqrt(truth["sn2"]), seed=0, device=dev)
+    rng = np.random.default_rng(2)
+    Xs = rng.uniform(-3.0, 3.0, (512, d)).astype(np.float32)
+    say("matrix_free", n=n, d=d, data_s=f"{time.perf_counter() - t0:.3f}")
+
+    init = kernels.init_params(d=d, lengthscale=0.6, signal_var=0.3,
+                               noise_var=0.3, device=dev)
+    # bench_fit_iterative's config C: warm-started, adaptively refreshed
+    kw = dict(learning_rate=0.15, precond_rank=128, num_probes=8, tol=1e-4,
+              max_iters=300, probe_mode="frozen", warm_start=True)
+    steps = 3
+    # one warm-up step: kernel loads and the allocator's first buffers
+    cugp_tpu_torch.GP(kind="rbf", device=dev).fit_iterative(
+        X, y, steps=1, init=init, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, last = [], [time.perf_counter()]
+
+    def step_wall(step, params, value, grads):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - last[0])
+        last[0] = now
+
+    gp = cugp_tpu_torch.GP(kind="rbf", device=dev)
+    info = gp.fit_iterative(X, y, steps=steps, init=init, callback=step_wall,
+                            **kw)
+    torch.cuda.synchronize()
+    peak_fit = torch.cuda.max_memory_allocated()
+    ll0 = init["log_lengthscale"].cpu().numpy()
+    ll = gp.params["log_lengthscale"].cpu().numpy()
+    loss = info["loss"].numpy()
+    say("matrix_free", steps=steps,
+        s_per_step=",".join(f"{w:.4f}" for w in walls),
+        cg_iters=",".join(map(str, info["cg_iters"].tolist())),
+        precond_rebuilds=info["precond_rebuilds"],
+        lengthscales=",".join(f"{v:.4f}" for v in np.exp(ll)),
+        sf2=f"{float(torch.exp(gp.params['log_signal_var'])):.4f}",
+        sn2=f"{float(torch.exp(gp.params['log_noise_var'])):.4f}",
+        peak_bytes=peak_fit)
+    target = math.log(truth["ell"])
+    if not (np.isfinite(loss).all() and np.isfinite(ll).all()):
+        fail(f"matrix-free fit: non-finite loss {loss} or params {ll}")
+    if not (np.abs(ll - target) < np.abs(ll0 - target)).all():
+        fail(f"matrix-free fit: log-lengthscales {ll} did not move from "
+             f"{ll0} toward log {truth['ell']}")
+
+    tol = 1e-4
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu, var = gp.predict_iterative(Xs[:128], tol=tol, stats=stats)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lml = float(gp.log_marginal_likelihood_iterative())
+    torch.cuda.synchronize()
+    t_lml = time.perf_counter() - t0
+    launches = read_launches()
+    # the mean solve's residual, recomputed without the kernel
+    p = gp.params
+    xs = gp.X / torch.exp(p["log_lengthscale"])
+    sf2 = torch.exp(p["log_signal_var"])
+    scal = torch.stack([sf2, torch.exp(p["log_noise_var"]) + gp.jitter * sf2,
+                        torch.ones_like(sf2)])
+    alpha = stats["alpha"]
+    res = gp.y - cov_matvec_cuda.cov_matvec_plain(xs, alpha[:, None], scal,
+                                                  "rbf", n)[:, 0]
+    rel_res = float(torch.linalg.vector_norm(res)
+                    / torch.linalg.vector_norm(gp.y))
+    say("matrix_free", predict_points=128, predict_s=f"{t_pred:.4f}",
+        mean_cg_iters=stats["mean_iters"],
+        var_cg_iters=",".join(map(str, stats["var_iters"])),
+        mean_rel_residual=f"{rel_res:.3e}", lml=f"{lml:.4f}",
+        lml_s=f"{t_lml:.4f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    mu, var = mu.cpu().numpy(), var.cpu().numpy()
+    if not (mu.shape == var.shape == (128,) and np.isfinite(mu).all()
+            and np.isfinite(var).all() and math.isfinite(lml)):
+        fail("matrix-free predict/LML: wrong shape or non-finite")
+    if not rel_res <= 10 * tol:
+        fail(f"matrix-free predict: mean-solve residual {rel_res:.3e} "
+             f"over 10 tol = {10 * tol:.1e}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"matrix-free path: the {name} kernel was never launched")
+
+    # accuracy: the iterative tier against the dense path on 16,384 rows
+    gp_s = cugp_tpu_torch.GP(kind="rbf", device=dev).condition(
+        X[:n_acc], y[:n_acc], params=gp.params)
+    stats = {}
+    mu_i, var_i = gp_s.predict_iterative(Xs, tol=1e-6, stats=stats)
+    mu_d, var_d = gp_s.predict(Xs)
+    lml_i = float(gp_s.log_marginal_likelihood_iterative())
+    lml_d = float(gp_s.log_marginal_likelihood())
+    err_mu = float((mu_i - mu_d).abs().max())
+    err_var = float((var_i - var_d).abs().max())
+    err_lml = abs(lml_i - lml_d) / n_acc
+    say("matrix_free", accuracy_n=n_acc, test_points=len(Xs),
+        mean_cg_iters=stats["mean_iters"],
+        var_cg_iters=",".join(map(str, stats["var_iters"])),
+        err_mu=f"{err_mu:.3e}", err_var=f"{err_var:.3e}",
+        lml_iterative=f"{lml_i:.4f}", lml_dense=f"{lml_d:.4f}",
+        err_lml_per_point=f"{err_lml:.3e}")
+    if not (err_mu <= 1e-3 and err_var <= 1e-3):
+        fail("matrix-free posterior off the dense one by more than 1e-3")
+    if not err_lml <= 0.05:
+        fail("matrix-free LML off the dense one by more than 0.05/point")
+    if profile:
+        profile_fit_step(torch, dev, X, y, gp.params, kw)
+    return launches
+
+
+def profile_fit_step(torch, dev, X, y, params, kw):
+    """One fit_iterative step at the fitted params under torch.profiler:
+    device time by kernel, and the host wall around it."""
+    import cugp_tpu_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gp = cugp_tpu_torch.GP(kind="rbf", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gp.fit_iterative(X, y, steps=1, init=params, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    say("profile", wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
+        idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows))
+    ours = ("cov_matvec_kernel", "cov_kernel", "potrf_kernel", "trsm_kernel")
+    for i, e in enumerate(rows):
+        if i < 12 or any(k in e.key for k in ours):
+            say("profile", kernel=repr(e.key[:60]), calls=e.count,
+                device_ms=f"{e.self_device_time_total / 1e3:.3f}")
+
 KERNELS = {
     "cov": ("cugp_tpu_torch/csrc/cov.cu", "cugp_tpu/ops/cov_pallas.py:48"),
     "potrf": ("cugp_tpu_torch/csrc/potrf.cu",
               "cugp_tpu/ops/chol_pallas.py:91"),
     "trsm": ("cugp_tpu_torch/csrc/trsm.cu",
              "cugp_tpu/ops/trsm_pallas.py:35"),
+    "cov_matvec": ("cugp_tpu_torch/csrc/cov_matvec.cu",
+                   "cugp_tpu/ops/cov_pallas.py:277"),
 }
 
 
-def main():
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
@@ -428,18 +772,32 @@ def main():
         import cugp_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
+    opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
+    phases = {int(v) for v in opts.get("--phases", "0,1,2,3,4,5").split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
-    results = {}
-    phase_cov(torch, dev, results)
-    phase_potrf(torch, dev, results)
-    phase_trsm(torch, dev, results)
-    launches = phase_main(torch, dev)
-    phase_north_star(torch, dev)
+    results, paths = {}, {}
+    if 2 in phases:
+        phase_cov(torch, dev, results)
+        phase_potrf(torch, dev, results)
+        phase_trsm(torch, dev, results)
+        phase_cov_matvec(torch, dev, results)
+    if 3 in phases:
+        paths["dense"] = phase_main(torch, dev)
+    if 4 in phases:
+        phase_north_star(torch, dev)
+    if 5 in phases:
+        paths["matrix_free"] = phase_matrix_free(
+            torch, dev, profile="--profile" in opts)
+    if phases != {0, 1, 2, 3, 4, 5}:
+        say("done", phases=sorted(phases), note="partial run, no result")
+        return 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": sum(p[name] for p in paths.values()),
+         "launches_by_path": {k: p[name] for k, p in paths.items()},
+         **results[name]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -449,4 +807,4 @@ def main():
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

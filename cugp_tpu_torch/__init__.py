@@ -3,8 +3,9 @@
 A port of ``cugp_tpu`` (the JAX/Pallas reference, which stays beside it):
 the dense exact-GP main path — covariance build, recursive blocked
 Cholesky, triangular solves, LML and its gradient, MAP (Adam) fit and
-posterior predict. The three Pallas kernels on that path are CUDA C++
-kernels for ``sm_90a`` under ``csrc/``, built with ``nvcc`` on first use
+posterior predict — and the matrix-free CG/SLQ tier for N beyond the
+dense ceiling. The four Pallas kernels are CUDA C++ kernels for
+``sm_90a`` under ``csrc/``, built with ``nvcc`` on first use
 (``ops/_build.py``). CPU tensors take each kernel's plain PyTorch version.
 
 This package imports ``torch``, numpy and scipy, never ``jax``.

@@ -1,7 +1,10 @@
-"""User-facing API facade, as ``cugp_tpu/api.py``'s ``GP`` (dense part).
+"""User-facing API facade, as ``cugp_tpu/api.py``'s ``GP`` (dense and
+matrix-free parts).
 
-``GP`` runs where its ``device`` says: data, hyperparameters and every
-kernel launch live there. Nothing looks for a GPU on its own.
+``GP`` runs where its ``device`` says, "cuda" unless the caller asks for
+the CPU: data, hyperparameters and every kernel launch live there. There
+is no fallback: without a CUDA device, a GP left on "cuda" fails with
+torch's own error when data is placed.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ class GP:
     jitter: diagonal jitter (times signal variance) for PD safety.
     method: 'auto' | 'pallas' — the CUDA kernels for a CUDA device, their
         plain versions on the CPU.
-    device: where data, hyperparameters and computation live.
+    device: where data, hyperparameters and computation live ("cuda" by
+        default; "cpu" runs the kernels' plain versions).
     """
 
     kind: str = "rbf"
@@ -43,7 +47,7 @@ class GP:
     method: str = "auto"
     basis: Optional[str] = None
     normalize_y: bool = False
-    device: Any = "cpu"
+    device: Any = "cuda"
     params: Optional[dict] = None
     X: Optional[Any] = None
     y: Optional[Any] = None
@@ -155,3 +159,85 @@ class GP:
             vars_.append(var)
         return (self._out_mean(torch.cat(mus)),
                 self._out_var(torch.cat(vars_)))
+
+    def fit_iterative(self, X, y, *, steps=50, learning_rate=0.05,
+                      init=None, generator=None, log_prior=None, **kw):
+        """Matrix-free MAP hyperparameter fit (map_opt.fit_iterative) for N
+        beyond the dense ceiling: per step, preconditioned CG solves and a
+        Hutchinson/AD gradient sweep; K is never formed. Extra kwargs
+        (precond_rank, num_probes, tol, block, probes, probe_mode, ...)
+        pass through. Returns the info dict."""
+        from cugp_tpu_torch.inference import map_opt
+
+        X, y = self._data(X, y)
+        if init is None:
+            init = kernel_ops.default_init(self.kind, d=X.shape[1],
+                                           device=self.device)
+        params, info = map_opt.fit_iterative(
+            self._params(init), X, y, kind=self.kind, jitter=self.jitter,
+            steps=steps, learning_rate=learning_rate, generator=generator,
+            log_prior=log_prior, **kw)
+        self.params, self.X, self.y = params, X, y
+        self._precond_cache = None
+        return info
+
+    def _iterative_precond(self, precond_rank, params):
+        """(Lk, Lg, s2) pivoted-Cholesky factors for the iterative entry
+        points, cached by (params, X, rank) object identity. "auto": rank
+        128 at n >= 8192, none below (small problems converge in few CG
+        iterations anyway)."""
+        from cugp_tpu_torch.inference import iterative
+
+        n = self.X.shape[0]
+        if precond_rank == "auto":
+            precond_rank = 128 if n >= 8192 else 0
+        if not precond_rank:
+            return None
+        cached = getattr(self, "_precond_cache", None)
+        if cached is not None:
+            c_params, c_X, c_rank, fac = cached
+            if c_params is params and c_X is self.X and c_rank == precond_rank:
+                return fac
+        fac = iterative.precond_factors(params, self.X, precond_rank,
+                                        kind=self.kind, jitter=self.jitter)
+        self._precond_cache = (params, self.X, precond_rank, fac)
+        return fac
+
+    def log_marginal_likelihood_iterative(self, params=None, *, block=4096,
+                                          num_probes=16, num_steps=32,
+                                          probes=None, generator=None,
+                                          precond_rank="auto",
+                                          segment_iters="auto"):
+        """Matrix-free LML (CG + stochastic Lanczos quadrature). probes:
+        the (n, num_probes) Rademacher probes, drawn from `generator`
+        (seed 0 by default) when not given. CG runs under the pivoted-
+        Cholesky preconditioner at n >= 8192 (precond_rank="auto"; 0
+        disables it)."""
+        from cugp_tpu_torch.inference import iterative, map_opt
+
+        map_opt.check_iterative_schedule(segment_iters)
+        p = self._params(params) if params is not None else self.params
+        pre = self._iterative_precond(precond_rank, p)
+        return self._out_lml(iterative.lml_iterative(
+            p, self.X, self.y, Z=probes, kind=self.kind, jitter=self.jitter,
+            block=block, num_probes=num_probes, num_steps=num_steps,
+            precond=pre, generator=generator))
+
+    def predict_iterative(self, Xs, *, block=4096, tol=1e-6,
+                          include_noise=False, precond_rank="auto",
+                          segment_iters="auto", col_batch=256, stats=None):
+        """Matrix-free posterior via batched CG solves (no N x N storage):
+        the test columns are solved `col_batch` at a time, so memory stays
+        O(n col_batch). stats: optional dict filled with the mean solve's
+        alpha and the CG counts (iterative.posterior_iterative)."""
+        from cugp_tpu_torch.inference import iterative, map_opt
+
+        map_opt.check_iterative_schedule(segment_iters)
+        Xs = _as_f32(Xs, self.device)
+        pre = self._iterative_precond(precond_rank, self.params)
+        mu, var = iterative.posterior_iterative(
+            self.params, self.X, self.y, Xs, kind=self.kind,
+            jitter=self.jitter, block=block, tol=tol,
+            include_noise=include_noise, precond=pre, col_batch=col_batch,
+            stats=stats)
+        return self._out_mean(mu), self._out_var(var)

@@ -2,11 +2,7 @@
 //
 // Replaces cugp_tpu/ops/cov_pallas.py::_cov_kernel (the fused Pallas
 // covariance tile). Same arithmetic: the cross term X1 X2^T, the row/column
-// squared norms s1/s2, and the per-family epilogue
-//   rbf      sf2 * exp(cross - s1/2 - s2/2)      (fused exponent, unclamped)
-//   matern*  on d2 = max(s1 + s2 - 2 cross, 0), r = sqrt(max(d2, 1e-12))
-//   rq       sf2 * exp(-a * log1p(d2 / (2a)))
-//   linear   sf2 * cross + alpha                 (alpha slot = bias variance)
+// squared norms s1/s2, and the per-family epilogue of cov_epilogue.cuh,
 // then the padding contract of cov_pallas.py:11-14: a square build adds
 // diag_add on the diagonal and writes an identity block at rows/cols
 // >= n_true; a cross build writes 0 beyond the true extent.
@@ -21,10 +17,13 @@
 // at exactly m x n with leading dimension ldo; the ragged edge is masked
 // here, so there is no padded output and no crop copy. The three scalars
 // [sf2, diag_add, alpha] are read through a device pointer, so a fit loop
-// never syncs the host to launch a build. Built without --use_fast_math:
-// expf/log1pf/sqrtf keep parity with the JAX epilogue.
+// never syncs the host to launch a build.
 
 #include <cuda_runtime.h>
+
+#include "cov_epilogue.cuh"
+
+using namespace cugp;
 
 namespace {
 
@@ -34,26 +33,6 @@ constexpr int DC = 32;         // feature chunk staged per pass
 constexpr int THREADS = 256;
 constexpr int ROW_STEP = THREADS / TN;     // 4
 constexpr int RPT = TM / ROW_STEP;         // 16 rows per thread
-
-enum Kind { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3, RQ = 4,
-            LINEAR = 5 };
-
-template <int KIND>
-__device__ __forceinline__ float epilogue(float cross, float s1, float s2,
-                                          float sf2, float alpha) {
-  if (KIND == LINEAR) return sf2 * cross + alpha;
-  if (KIND == RBF) return sf2 * expf(cross - 0.5f * s1 - 0.5f * s2);
-  const float d2 = fmaxf(s1 + s2 - 2.0f * cross, 0.0f);
-  if (KIND == RQ) return sf2 * expf(-alpha * log1pf(d2 / (2.0f * alpha)));
-  const float r = sqrtf(fmaxf(d2, 1e-12f));
-  if (KIND == MATERN12) return sf2 * expf(-r);
-  if (KIND == MATERN32) {
-    const float s = 1.7320508075688772f * r;
-    return sf2 * ((1.0f + s) * expf(-s));
-  }
-  const float s = 2.23606797749979f * r;  // MATERN52
-  return sf2 * ((1.0f + s + (s * s) / 3.0f) * expf(-s));
-}
 
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "cugp_potrf": [_p, _ll, _ll, _i, _i, _p],
     # l, ldl, b, row_stride, col_stride, n, k, transpose, stream
     "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p],
+    # x, v, scal, out, n, d, r, v_row_stride, v_col_stride, ldo, kind, stream
+    "cugp_cov_matvec": [_p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p],
 }
 
 _lib = None

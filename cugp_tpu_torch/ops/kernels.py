@@ -52,6 +52,16 @@ def parse_kind(kind):
     return tuple(terms)
 
 
+def require_base_kind(kind, where):
+    """Paths that specialize per family (the analytic-gradient estimator,
+    the fused single-family matvec) serve base kinds only; composites go
+    through the AD / per-factor tile routes."""
+    if is_composite(kind):
+        raise NotImplementedError(
+            f"{where} supports base kernel families only, got composite "
+            f"{kind!r}; use the blocked route (method='auto'/'blocked')")
+
+
 def validate_kind(kind):
     """Raise ValueError unless kind is a supported base family or a
     well-formed composite of them."""
@@ -114,6 +124,33 @@ def flatten_terms(params, kind):
              [(base, _unit_amplitude(fp, like))
               for fp, base in zip(tparams["factors"], bases)])
             for tparams, bases in zip(params["terms"], terms)]
+
+
+def factor_view(fparams, X, base):
+    """Scale X into a factor's evaluation space.
+
+    Returns (Xs, base', extra) such that the factor's unit-amplitude tile
+    between row/col chunks of Xs is ``tile_eval(rows, cols, base',
+    extra)``; periodic is rewritten to rbf on the cos/sin embedding.
+    """
+    if base == "periodic":
+        fparams, X = periodic_rbf_view(fparams, X)
+        base = "rbf"
+    ell = torch.exp(fparams["log_lengthscale"])
+    return (X / ell).to(torch.float32), base, extra_scalar(fparams, base)
+
+
+def tile_eval(rows_s, cols_s, base, extra):
+    """Unit-amplitude kernel tile between pre-scaled row/col chunks, in
+    plain torch ops (the JAX version is XLA too). base is post-factor_view
+    (no 'periodic'); extra is the rq alpha or the linear bias."""
+    cross = rows_s @ cols_s.T
+    if base == "linear":
+        return cross + extra
+    r2 = torch.sum(rows_s * rows_s, dim=-1)[:, None]
+    c2 = torch.sum(cols_s * cols_s, dim=-1)[None, :]
+    d2 = torch.clamp(r2 + c2 - 2.0 * cross, min=0.0)
+    return kernel_fn(d2, base, extra if base == "rq" else None)
 
 
 def kernel_fn(d2, kind, alpha=None):
