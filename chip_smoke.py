@@ -2,16 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (cugp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --phases=2 --profile   # a subset; profile a fit step
+    python3 chip_smoke.py --phases=3,5 --profile   # a subset, profiled
+    python3 chip_smoke.py --phases=2 --potrf-tiles=32,64   # tile A/B
 
 Phases, one line of output each (or a few), failing fast with exit 1:
   0. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, TF32 off;
-  1. build: nvcc compiles the kernels under cugp_tpu_torch/csrc/;
+  1. build: nvcc compiles the kernels under cugp_tpu_torch/csrc/ (one
+     process a source, in parallel) and ptxas reports potrf's resources;
   2. kernels against their plain PyTorch versions on the card, at the
-     shapes of the main paths: covariance tile, potrf, TRSM and the fused
+     shapes of the main paths: covariance tile, potrf (the grid it takes,
+     small and ragged n, in place, batches and repeats bitwise, NaN on a
+     non-PD block, a time per base-block size), TRSM and the fused
      covariance matvec, each beside its bound and, where one exists, the
      one PyTorch call that computes the same function;
+     --potrf-tiles=32,64 adds the potrf tile-edge A/B (a library built
+     per CUGP_POTRF_TILE);
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against a float64 scipy posterior, with each kernel's launch
@@ -23,8 +29,10 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      mean solve's residual recomputed without the kernel) and
      log_marginal_likelihood_iterative, launch counters read around
      them; then, on the first 16,384 rows, the iterative posterior and
-     LML against the dense path. --profile adds one torch.profiler fit
-     step at N=100,000 and prints its device time by kernel.
+     LML against the dense path.
+--profile adds torch.profiler device times by kernel: 3 config-2 fit
+steps (phase 3), one Cholesky at N=32768 (phase 4) and one fit step at
+N=100,000 (phase 5).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -66,8 +74,11 @@ def say(phase, **kv):
           flush=True)
 
 
-def cuda_ms(fn, iters=10, warmup=2):
-    """Median milliseconds of fn() by CUDA events, after warm-up."""
+def cuda_ms(fn, iters=10, warmup=2, reps=1):
+    """Median milliseconds of fn() by CUDA events, after warm-up. With
+    reps > 1 each sample times reps calls back to back and divides, so a
+    call shorter than the host's time to issue it is not charged the
+    device's idle gaps (up to the one before the first call)."""
     import torch
 
     for _ in range(warmup):
@@ -78,10 +89,11 @@ def cuda_ms(fn, iters=10, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -114,6 +126,16 @@ def phase_build():
     _build.lib()
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         library=so.name)
+    print_ptxas("potrf.cu")
+
+
+def print_ptxas(source, defines=()):
+    """ptxas's registers / shared memory / spills for one source's kernels."""
+    from cugp_tpu_torch.ops import _build
+
+    for line in _build.ptxas_report(defines).get(source, "").splitlines():
+        if any(k in line for k in ("entry function", "Used", "spill")):
+            say("ptxas", source=source, info=repr(line.strip()))
 
 
 def _close(got, want, rtol, atol):
@@ -308,6 +330,9 @@ def _spd(torch, n, dev, seed):
     return (g @ g.T / n + torch.eye(n)).to(dev)
 
 
+POTRF_SIZES = (128, 512, 576, 768, 1024)  # the base blocks the paths use
+
+
 def phase_potrf(torch, dev, results):
     from cugp_tpu_torch.ops import chol_cuda
 
@@ -324,9 +349,15 @@ def phase_potrf(torch, dev, results):
                  f"L err {err:.3e} (bar 1e-4 rel)")
         return float(rec), err
 
-    for n in (1000, 576, 1024):
+    grid = {n: chol_cuda.grid_size(n, dev) for n in POTRF_SIZES}
+    say("potrf", grid_by_n=json.dumps(grid, separators=(",", ":")))
+    if grid[1024] <= 1:
+        fail(f"potrf: one CTA at n=1024 (grid {grid[1024]})")
+
+    # small, ragged and base-block sizes; the upper triangle is ignored
+    for n in (8, 100, 200, 576, 1000, 1024):
         A = _spd(torch, n, dev, n)
-        garbage = A + torch.triu(torch.full_like(A, 7.0), 1)  # upper ignored
+        garbage = A + torch.triu(torch.full_like(A, 7.0), 1)
         L = chol_cuda.potrf(garbage)
         torch.cuda.synchronize()
         if float(torch.triu(L, 1).abs().max()) != 0.0:
@@ -351,14 +382,20 @@ def phase_potrf(torch, dev, results):
     say("potrf", case="in place, lda=2048", recon_relerr=f"{rec:.3e}",
         L_err=f"{err:.3e}")
 
-    # batch of 3 against a loop: bitwise equal
-    As = torch.stack([_spd(torch, 576, dev, 100 + i) for i in range(3)])
-    Lb = chol_cuda.potrf(As)
-    Ll = torch.stack([chol_cuda.potrf(a) for a in As])
-    torch.cuda.synchronize()
-    if not torch.equal(Lb, Ll):
-        fail("potrf: batched result differs from the looped one")
-    say("potrf", case="batch of 3 vs loop", bitwise_equal=True)
+    # batches against the loop, and two launches: bitwise equal
+    for n, count in ((576, 3), (1024, 2)):
+        As = torch.stack([_spd(torch, n, dev, 100 + i) for i in range(count)])
+        Lb = chol_cuda.potrf(As)
+        Ll = torch.stack([chol_cuda.potrf(a) for a in As])
+        torch.cuda.synchronize()
+        if not torch.equal(Lb, Ll):
+            fail(f"potrf: batch of {count} at n={n} differs from the loop")
+        say("potrf", case=f"batch of {count} at n={n} vs loop",
+            bitwise_equal=True)
+    A = _spd(torch, 1024, dev, 13)
+    if not torch.equal(chol_cuda.potrf(A), chol_cuda.potrf(A)):
+        fail("potrf: two launches at n=1024 differ")
+    say("potrf", case="two launches at n=1024", bitwise_equal=True)
 
     # a block that is not PD factors to NaN, not to clamped garbage
     bad = _spd(torch, 576, dev, 5)
@@ -369,17 +406,53 @@ def phase_potrf(torch, dev, results):
         fail("potrf: a non-PD block gave a finite factor")
     say("potrf", case="non-PD block", nan=True)
 
-    A = _spd(torch, 1024, dev, 11)
-    ms = cuda_ms(lambda: chol_cuda.potrf(A))
-    plain_ms = cuda_ms(lambda: chol_cuda.potrf_plain(A))
-    library_ms = cuda_ms(lambda: torch.linalg.cholesky(A))
-    b_ms, b_by = bound(4 * 2 * 1024 ** 2, 1024 ** 3 / 3)
-    say("potrf", shape="1024", kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{b_ms:.5f}", max_abs_err=f"{worst:.3e}")
-    results["potrf"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": library_ms}
+    by_n = {}
+    for n in POTRF_SIZES:
+        A = _spd(torch, n, dev, 11)
+        ms = cuda_ms(lambda: chol_cuda.potrf(A), reps=10)
+        plain_ms = cuda_ms(lambda: chol_cuda.potrf_plain(A), reps=10)
+        library_ms = cuda_ms(lambda: torch.linalg.cholesky(A), reps=10)
+        # the block read once and L written once; n^3/3 fp32 flops
+        b_ms, b_by = bound(4 * 2 * n ** 2, n ** 3 / 3)
+        say("potrf", shape=n, grid=grid[n], kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+        by_n[n] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "grid": grid[n]}
+    say("potrf", max_abs_err=f"{worst:.3e}")
+    results["potrf"] = {"max_abs_err": worst, **by_n[1024], "by_n": by_n}
+
+
+def phase_potrf_tiles(torch, dev, tiles):
+    """The tile edge A/B: the library built with each CUGP_POTRF_TILE,
+    timed at n = 128, 576, 1024 in turns (a, b, b, a), each checked
+    against torch.linalg.cholesky."""
+    from cugp_tpu_torch.ops import _build
+
+    libs = {}
+    for t in tiles:
+        defines = (f"CUGP_POTRF_TILE={t}",)
+        libs[t] = _build.lib(defines)
+        print_ptxas("potrf.cu", defines)
+
+    def run(t, A):
+        L = A.clone()
+        _build.check(libs[t].cugp_potrf(L.data_ptr(), L.stride(0), 0,
+                                        L.shape[0], 1, _build.stream_of(L)),
+                     "potrf")
+        return L
+
+    for n in (128, 576, 1024):
+        A = _spd(torch, n, dev, 11)
+        ref = torch.linalg.cholesky(A)
+        times = {t: [] for t in tiles}
+        for t in list(tiles) + list(reversed(tiles)):
+            err = float((run(t, A) - ref).abs().max())
+            if not err <= 1e-4 * float(ref.abs().max()):
+                fail(f"potrf tile {t} n={n}: L err {err:.3e}")
+            times[t].append(cuda_ms(lambda: run(t, A), reps=10))
+        say("potrf_tiles", n=n, **{f"T{t}_ms": ",".join(
+            f"{v:.4f}" for v in times[t]) for t in tiles})
 
 
 def phase_trsm(torch, dev, results):
@@ -439,17 +512,29 @@ def phase_trsm(torch, dev, results):
     ms128 = cuda_ms(lambda: trsm_cuda.trsm(L128, b9))
     lib128 = cuda_ms(lambda: torch.linalg.solve_triangular(L128, b9,
                                                            upper=False))
-    b_ms, b_by = bound(4 * (1024 ** 2 + 2 * 1024 * 4096), 1024 ** 2 * 4096)
+    b_ms, b_by = _trsm_bound(1024, 4096)
+    b1_ms, b1_by = _trsm_bound(1024, 1)
+    b128_ms, b128_by = _trsm_bound(128, 9)
     say("trsm", shape="n=1024 k=4096", kernel_ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{b_ms:.5f}", k1_kernel_ms=f"{ms1:.4f}",
-        k1_plain_ms=f"{plain_ms1:.4f}", n128_k9_kernel_ms=f"{ms128:.4f}",
-        n128_k9_library_ms=f"{lib128:.4f}", max_abs_err=f"{worst:.3e}")
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+    say("trsm", shape="n=1024 k=1", kernel_ms=f"{ms1:.4f}",
+        plain_ms=f"{plain_ms1:.4f}", bound_ms=f"{b1_ms:.7f}",
+        bound_by=b1_by)
+    say("trsm", shape="n=128 k=9", kernel_ms=f"{ms128:.4f}",
+        library_ms=f"{lib128:.4f}", bound_ms=f"{b128_ms:.7f}",
+        bound_by=b128_by, max_abs_err=f"{worst:.3e}")
     results["trsm"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms, "k1_ms": ms1,
-                       "k1_plain_ms": plain_ms1, "n128_k9_ms": ms128,
-                       "n128_k9_library_ms": lib128}
+                       "k1_plain_ms": plain_ms1, "k1_bound_ms": b1_ms,
+                       "n128_k9_ms": ms128, "n128_k9_library_ms": lib128,
+                       "n128_k9_bound_ms": b128_ms}
+
+
+def _trsm_bound(n, k):
+    """L and B read once, X written once; n^2 k fp32 flops."""
+    return bound(4 * (n ** 2 + 2 * n * k), n ** 2 * k)
 
 
 def _posterior64(params, X, y, Xs, jitter=1e-6):
@@ -494,7 +579,7 @@ def read_launches():
     return {name: mod.LAUNCHES for name, mod in _wrappers().items()}
 
 
-def phase_main(torch, dev):
+def phase_main(torch, dev, profile=False):
     import cugp_tpu_torch
     from cugp_tpu_torch.data import synthetic
     from cugp_tpu_torch.utils.params import params_to_numpy
@@ -543,10 +628,13 @@ def phase_main(torch, dev):
     for name in ("cov", "potrf", "trsm"):
         if launches[name] <= 0:
             fail(f"main path: the {name} kernel was never launched")
+    if profile:
+        profile_device(torch, "profile_dense", lambda: cugp_tpu_torch.GP(
+            kind="rbf", device=dev).fit(X, y, steps=3, learning_rate=0.05))
     return launches
 
 
-def phase_north_star(torch, dev):
+def phase_north_star(torch, dev, profile=False):
     from cugp_tpu_torch.ops import cholesky as chol_ops
     from cugp_tpu_torch.ops import kernels
 
@@ -575,6 +663,10 @@ def phase_north_star(torch, dev):
         recon_relerr=f"{relerr:.3e}", peak_bytes=peak)
     if not relerr < 2e-4:
         fail(f"north star: reconstruction relerr {relerr:.3e} (gate 2e-4)")
+    if profile:
+        with torch.no_grad():
+            profile_device(torch, "profile_chol",
+                           lambda: chol_ops.cholesky(K))
 
 
 def rff_gp_draw(n, d, ell, sf2, noise_std, seed=0, features=4096,
@@ -719,23 +811,23 @@ def phase_matrix_free(torch, dev, profile=False, n=100_000, n_acc=16384):
         fail("matrix-free posterior off the dense one by more than 1e-3")
     if not err_lml <= 0.05:
         fail("matrix-free LML off the dense one by more than 0.05/point")
-    if profile:
-        profile_fit_step(torch, dev, X, y, gp.params, kw)
+    if profile:  # one fit step at the fitted params
+        profile_device(torch, "profile", lambda: cugp_tpu_torch.GP(
+            kind="rbf", device=dev).fit_iterative(X, y, steps=1,
+                                                  init=gp.params, **kw))
     return launches
 
 
-def profile_fit_step(torch, dev, X, y, params, kw):
-    """One fit_iterative step at the fitted params under torch.profiler:
-    device time by kernel, and the host wall around it."""
-    import cugp_tpu_torch
+def profile_device(torch, tag, fn):
+    """fn() under torch.profiler: device time by kernel, and the host
+    wall around it (its idle share is 1 - busy / wall)."""
     from torch.profiler import ProfilerActivity, profile
 
-    gp = cugp_tpu_torch.GP(kind="rbf", device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        gp.fit_iterative(X, y, steps=1, init=params, **kw)
+        fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
@@ -743,13 +835,14 @@ def profile_fit_step(torch, dev, X, y, params, kw):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    say("profile", wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
+    say(tag, wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
         idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows))
     ours = ("cov_matvec_kernel", "cov_kernel", "potrf_kernel", "trsm_kernel")
     for i, e in enumerate(rows):
         if i < 12 or any(k in e.key for k in ours):
-            say("profile", kernel=repr(e.key[:60]), calls=e.count,
+            say(tag, kernel=repr(e.key[:60]), calls=e.count,
                 device_ms=f"{e.self_device_time_total / 1e3:.3f}")
+
 
 KERNELS = {
     "cov": ("cugp_tpu_torch/csrc/cov.cu", "cugp_tpu/ops/cov_pallas.py:48"),
@@ -783,10 +876,13 @@ def main(argv):
         phase_potrf(torch, dev, results)
         phase_trsm(torch, dev, results)
         phase_cov_matvec(torch, dev, results)
+    if "--potrf-tiles" in opts:
+        phase_potrf_tiles(torch, dev, [int(t) for t in
+                                       opts["--potrf-tiles"].split(",")])
     if 3 in phases:
-        paths["dense"] = phase_main(torch, dev)
+        paths["dense"] = phase_main(torch, dev, profile="--profile" in opts)
     if 4 in phases:
-        phase_north_star(torch, dev)
+        phase_north_star(torch, dev, profile="--profile" in opts)
     if 5 in phases:
         paths["matrix_free"] = phase_matrix_free(
             torch, dev, profile="--profile" in opts)

@@ -4,114 +4,375 @@
 // the recursive blocked Cholesky. The Pallas kernel holds the whole block
 // in VMEM and needs n % 128 == 0; this one takes any n <= 1024 with a
 // leading dimension, so it factors a diagonal block of the big buffer in
-// place, and a leading batch through the grid (one CTA per block).
+// place, and a leading batch one block after another.
 //
-// What bounds it on the H100: one SM, serial over panels. A 1024^2 fp32
-// block is 4 MB, far over a CTA's 227 KB of shared memory, so the block
-// stays in global memory (L2, 50 MB, holds it) and only the working
-// panel lives in shared memory. Design: one CTA of 1024 threads,
-// right-looking over 32-wide panels:
-//   1. the 32x32 diagonal tile is loaded into shared memory (identity
-//      padded when n is not a multiple of 32) and factored there, one
-//      thread per element;
-//   2. each thread solves one row of the sub-diagonal panel against it
-//      (x L11^T = a) in registers, writing L21 to global memory and to a
-//      shared copy of the panel;
-//   3. the trailing lower triangle is updated in fp32 FMA from the shared
-//      panel: each warp takes a row, its lanes consecutive columns, so the
-//      read-modify-write of A is coalesced.
-// Only the lower triangle is read (callers pass SYRK-lower results whose
-// upper triangle is garbage) and zeros are written above the diagonal.
-// A non-positive pivot gives sqrtf of a negative number: NaN, which
-// propagates, so callers can detect a failed factorization.
+// What bounds it on the H100: not FMA issue. A 1024^2 block is n^3/3 =
+// 358 MFLOP, 5 us at the card's fp32 peak, but a Cholesky is a chain of
+// T-wide steps whose diagonal factor and panel solve are serial in the
+// column, so the time is the chain: per step, the diagonal tile's
+// factorization (a block barrier, a sqrt and a divide per column), the
+// panel solve, two grid-wide barriers and two round trips to L2, with
+// the trailing update spread over the SMs in between. Design: a tiled
+// right-looking Cholesky on T x T tiles (T = 32: at T = 64 each column's
+// serial work per thread is 4x larger and the kernel ran 1.4x slower,
+// though with half the barriers), one persistent grid of G CTAs in one
+// cooperative launch (G = min(co-resident CTAs, trailing tiles of step
+// 0)). Step k:
+//   1. panel: the tiles (i, k), i >= k, are dealt round-robin to CTAs.
+//      Every owner loads the lower part of A_kk (identity padded past n)
+//      into registers and factors it with the same code, so all get the
+//      bitwise-same L_kk and no CTA waits for another: rows in registers,
+//      one block barrier a column. The other owners (their tile's loads
+//      issued before the factor) solve X L_kk^T = A_ik by substitution,
+//      rows in parallel, pivots passed by shuffle with no block barrier,
+//      and write L_ik in place. CTA 0 writes L_kk after the grid barrier,
+//      since the other owners read A_kk until then.
+//   2. update: the tiles (i, j), k < j <= i, are dealt round-robin;
+//      A_ij -= L_ik L_jk^T with both panels staged transposed in shared
+//      memory (all loads issued first) and a register micro-tile of
+//      (T/16)^2 outputs a thread, read as float2/float4: half a shared
+//      load an FMA at T = 32 (a quarter at 64), not 2.
+// Each phase ends in a grid barrier (cooperative_groups); tiles other
+// CTAs wrote in this launch are read past L1 (__ldcg), which is not
+// coherent across SMs. A tile's sums run in a fixed order whoever owns
+// it, so the result does not depend on G. Only the lower triangle is
+// read (callers pass SYRK-lower results whose upper triangle is stale);
+// zeros are written above the diagonal at the end; nothing outside the
+// block is written. A non-positive pivot gives sqrtf of a negative
+// number: NaN, which propagates, so callers can detect a failed
+// factorization. Fp32 FMA only (no tensor cores: their only fp32 path
+// is TF32). CUGP_POTRF_TILE=64 builds the other tile edge for an A/B.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#ifndef CUGP_POTRF_TILE
+#define CUGP_POTRF_TILE 32
+#endif
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NB = 32;         // panel width
-constexpr int THREADS = 1024;  // 32 x 32: one thread per tile element
+constexpr int THREADS = 256;
 constexpr int MAXN = 1024;
+constexpr int TILE = CUGP_POTRF_TILE;
+static_assert(TILE == 32 || TILE == 64, "potrf tile must be 32 or 64");
 
-__global__ void __launch_bounds__(THREADS)
-potrf_kernel(float* __restrict__ a_base, long long lda,
-             long long batch_stride, int n) {
-  extern __shared__ float smem[];
-  float (*D)[NB + 1] = reinterpret_cast<float (*)[NB + 1]>(smem);
-  float (*P)[NB + 1] = reinterpret_cast<float (*)[NB + 1]>(smem + NB * (NB + 1));
-  float* a = a_base + blockIdx.x * batch_stride;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+template <int T>
+struct Geo {
+  static constexpr int RG = THREADS / T;  // threads a row in the panel phase
+  static constexpr int CPT = T / RG;      // columns each of them holds
+  static constexpr int LD1 = T + 1;       // row stride of L_kk in shared memory
+  static constexpr int LD2 = T + 4;       // row stride of update tiles
+  static constexpr int MR = T / 16;       // update micro-tile edge
+  // floats: L_kk, two column buffers, 1 / L_jj
+  static constexpr int SMEM1 = T * LD1 + 3 * T;
+  // floats: the two transposed panels of the update
+  static constexpr int SMEM2 = 2 * T * LD2;
+  static constexpr int SMEM = SMEM1 > SMEM2 ? SMEM1 : SMEM2;
+};
 
-  for (int p = 0; p < n; p += NB) {
-    const int pb = min(NB, n - p);
-    // 1. diagonal tile: lower part of A[p:p+pb, p:p+pb], identity padded
-    {
-      const int r = warp, c = lane;
-      float v;
-      if (r < pb && c < pb)
-        v = (c <= r) ? a[(long long)(p + r) * lda + p + c] : 0.0f;
-      else
-        v = (r == c) ? 1.0f : 0.0f;
-      D[r][c] = v;
-      __syncthreads();
-      for (int j = 0; j < NB; ++j) {
-        const float dj = sqrtf(D[j][j]);
-        const float lrj = D[r][j] / dj;
-        const float lcj = D[c][j] / dj;
-        __syncthreads();
-        if (c == j && r >= j)
-          D[r][j] = (r == j) ? dj : lrj;
-        else if (c > j && r >= c)
-          D[r][c] -= lrj * lcj;
-        __syncthreads();
-      }
-      if (r < pb && c <= r) a[(long long)(p + r) * lda + p + c] = D[r][c];
-    }
+constexpr size_t SMEM_BYTES = Geo<TILE>::SMEM * sizeof(float);
 
-    // 2. panel solve: rows q.. of the panel, x L11^T = a, one row a thread
-    const int q = p + pb;
-    const int rows = n - q;
-    for (int rr = tid; rr < rows; rr += THREADS) {
-      float* arow = a + (long long)(q + rr) * lda + p;
-      float x[NB];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) x[j] = (j < pb) ? arow[j] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        float s = x[j];
-#pragma unroll
-        for (int k = 0; k < j; ++k) s -= x[k] * D[j][k];
-        x[j] = s / D[j][j];
-      }
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        P[rr][j] = x[j];
-        if (j < pb) arow[j] = x[j];
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ float* at(float* a, long long lda, int r, int c) {
+  return a + static_cast<long long>(r) * lda + c;
+}
 
-    // 3. trailing update of the lower triangle: A[q:, q:] -= L21 L21^T
-    for (int ii = warp; ii < rows; ii += THREADS / 32) {
-      float* arow = a + (long long)(q + ii) * lda + q;
-      for (int kk = lane; kk <= ii; kk += 32) {
-        float s = 0.0f;
+// Row r of a T x T tile at (r0, c0), columns q, q + RG, ... of it, into
+// thread (r, q)'s registers (rows x cols valid). A diagonal tile keeps
+// only its lower part and is identity padded past n; a panel tile is
+// zero padded. The loads are independent, so their latencies overlap.
+template <int T>
+__device__ __forceinline__ void load_rows(const float* a, long long lda,
+                                          int r0, int rows, int c0, int cols,
+                                          bool diag, float (&x)[Geo<T>::CPT]) {
+  using G = Geo<T>;
+  const int r = threadIdx.x / G::RG, q = threadIdx.x % G::RG;
 #pragma unroll
-        for (int j = 0; j < NB; ++j) s += P[ii][j] * P[kk][j];
-        arow[kk] -= s;
-      }
-    }
-    __syncthreads();
+  for (int t = 0; t < G::CPT; ++t) {
+    const int c = q + G::RG * t;
+    float v = 0.0f;
+    if (r < rows && c < cols && (!diag || c <= r))
+      v = __ldcg(a + static_cast<long long>(r0 + r) * lda + c0 + c);
+    else if (diag && r == c && r >= rows)
+      v = 1.0f;
+    x[t] = v;
   }
+}
 
-  // zeros above the diagonal
-  for (int r = warp; r < n; r += THREADS / 32)
-    for (int c = r + 1 + lane; c < n; c += 32) a[(long long)r * lda + c] = 0.0f;
+// Factor a diagonal tile held in registers as load_rows left it, into
+// shared memory: Ls = L_kk (zeros above, identity past n), rinv[j] = 1 / L_jj.
+// Column j is published to a double buffer, and after one barrier every
+// thread scales it by 1 / sqrt(pivot) itself, so L_cj is the same product
+// wherever it is used.
+template <int T>
+__device__ void factor_diag(float (&x)[Geo<T>::CPT], float* Ls,
+                            float* colbuf, float* rinv) {
+  using G = Geo<T>;
+  const int tid = threadIdx.x;
+  const int r = tid / G::RG, q = tid % G::RG;
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    float* col = colbuf + (j & 1) * T;
+    if (q == j % G::RG) col[r] = x[j / G::RG];
+    __syncthreads();
+    const float d = sqrtf(col[j]);
+    const float ri = 1.0f / d;
+    const float lr = __fmul_rn(col[r], ri);
+    if (q == j % G::RG && r >= j) x[j / G::RG] = (r == j) ? d : lr;
+#pragma unroll
+    for (int t = j / G::RG; t < G::CPT; ++t) {
+      const int c = q + G::RG * t;
+      if (c > j && c <= r)
+        x[t] = __fmaf_rn(-lr, __fmul_rn(col[c], ri), x[t]);
+    }
+    if (tid == 0) rinv[j] = ri;
+  }
+#pragma unroll
+  for (int t = 0; t < G::CPT; ++t) Ls[r * G::LD1 + q + G::RG * t] = x[t];
+  __syncthreads();
+}
+
+// L_ik = A_ik L_kk^{-T} on a panel tile held as load_rows left it, by
+// substitution with rows in parallel: x_j = a_j / L_jj is passed along
+// the row's RG threads by shuffle, then a_c -= x_j L_cj for c > j. No
+// block-wide barrier. Written in place (rows x cols valid).
+template <int T>
+__device__ void solve_panel(float (&x)[Geo<T>::CPT], const float* Ls,
+                            const float* rinv, float* a, long long lda,
+                            int i0, int rows, int k0, int cols) {
+  using G = Geo<T>;
+  const int r = threadIdx.x / G::RG, q = threadIdx.x % G::RG;
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    const float v = __fmul_rn(x[j / G::RG], rinv[j]);
+    const float xj = __shfl_sync(0xffffffffu, v, j % G::RG, G::RG);
+    if (q == j % G::RG) x[j / G::RG] = xj;
+#pragma unroll
+    for (int t = j / G::RG; t < G::CPT; ++t) {
+      const int c = q + G::RG * t;
+      if (c > j) x[t] = __fmaf_rn(-xj, Ls[c * G::LD1 + j], x[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < G::CPT; ++t) {
+    const int c = q + G::RG * t;
+    if (r < rows && c < cols) __stcg(at(a, lda, i0 + r, k0 + c), x[t]);
+  }
+}
+
+// The lower part of L_kk (in Ls) to the diagonal tile at (k0, k0).
+template <int T>
+__device__ void write_diag(float* a, long long lda, int k0, int kb,
+                           const float* Ls) {
+  for (int e = threadIdx.x; e < T * T; e += THREADS) {
+    const int r = e / T, c = e % T;
+    if (r < kb && c <= r)
+      __stcg(at(a, lda, k0 + r, k0 + c), Ls[r * Geo<T>::LD1 + c]);
+  }
+}
+
+// One panel tile's share of this thread, for staging transposed:
+// v[s] = A[row0 + r][k0 + m] with (r, m) = rm(s). A warp reads 4 rows x 8
+// columns (one 32-byte sector a row); with the row stride T + 4 the
+// transposed stores dst[m][r] fall in 32 distinct banks.
+template <int T>
+struct Stage {
+  static constexpr int RB = T / 4;
+  static constexpr int PER = (T / 4) * (T / 8) / (THREADS / 32);
+  __device__ static int row(int s) {
+    return 4 * ((threadIdx.x / 32 + (THREADS / 32) * s) % RB) +
+           (threadIdx.x % 32) / 8;
+  }
+  __device__ static int col(int s) {
+    return 8 * ((threadIdx.x / 32 + (THREADS / 32) * s) / RB) +
+           threadIdx.x % 8;
+  }
+  __device__ static void load(const float* a, long long lda, int n, int row0,
+                              int k0, int kb, float (&v)[PER]) {
+#pragma unroll
+    for (int s = 0; s < PER; ++s) {
+      const int r = row(s), m = col(s);
+      v[s] = (row0 + r < n && m < kb)
+          ? __ldcg(a + static_cast<long long>(row0 + r) * lda + k0 + m)
+          : 0.0f;
+    }
+  }
+  __device__ static void store(const float (&v)[PER], float* dst) {
+#pragma unroll
+    for (int s = 0; s < PER; ++s) dst[col(s) * Geo<T>::LD2 + row(s)] = v[s];
+  }
+};
+
+// A_ij -= L_ik L_jk^T for the tile at rows i0.., columns j0.., panel
+// columns k0.. (kb valid); on a diagonal tile (i0 == j0) only entries on
+// or below the diagonal are written.
+template <int T>
+__device__ void update_tile(float* a, long long lda, int n, int i0, int j0,
+                            int k0, int kb, float* smem) {
+  using G = Geo<T>;
+  constexpr int MR = G::MR, LD = G::LD2;
+  constexpr int RS = THREADS / T, NS = T / RS;  // write-back rows a pass
+  const int tid = threadIdx.x;
+  const int wc = tid % T, wr = tid / T;
+  // every load issued before any use: both panels, then the old values
+  float pv[Stage<T>::PER], qv_[Stage<T>::PER], old[NS];
+  Stage<T>::load(a, lda, n, i0, k0, kb, pv);
+  Stage<T>::load(a, lda, n, j0, k0, kb, qv_);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int gi = i0 + wr + RS * s, gj = j0 + wc;
+    old[s] = (gi < n && gj < n) ? __ldcg(at(a, lda, gi, gj)) : 0.0f;
+  }
+  float* Pt = smem;           // Pt[m][r] = L_ik[r][m]
+  float* Qt = smem + T * LD;  // Qt[m][c] = L_jk[c][m]
+  Stage<T>::store(pv, Pt);
+  Stage<T>::store(qv_, Qt);
+  __syncthreads();
+  const int tr = tid / 16, tc = tid % 16;
+  float acc[MR][MR];
+#pragma unroll
+  for (int u = 0; u < MR; ++u)
+#pragma unroll
+    for (int v = 0; v < MR; ++v) acc[u][v] = 0.0f;
+#pragma unroll 8
+  for (int m = 0; m < T; ++m) {
+    float p[MR], qv[MR];
+    if constexpr (MR == 4) {
+      const float4 p4 = *reinterpret_cast<const float4*>(Pt + m * LD + 4 * tr);
+      const float4 q4 = *reinterpret_cast<const float4*>(Qt + m * LD + 4 * tc);
+      p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
+      qv[0] = q4.x; qv[1] = q4.y; qv[2] = q4.z; qv[3] = q4.w;
+    } else {
+      const float2 p2 = *reinterpret_cast<const float2*>(Pt + m * LD + 2 * tr);
+      const float2 q2 = *reinterpret_cast<const float2*>(Qt + m * LD + 2 * tc);
+      p[0] = p2.x; p[1] = p2.y;
+      qv[0] = q2.x; qv[1] = q2.y;
+    }
+#pragma unroll
+    for (int u = 0; u < MR; ++u)
+#pragma unroll
+      for (int v = 0; v < MR; ++v) acc[u][v] = __fmaf_rn(p[u], qv[v], acc[u][v]);
+  }
+  __syncthreads();  // the panels are read; reuse their space for the sums
+  float* Ct = smem;  // Ct[r][c], row stride LD
+#pragma unroll
+  for (int u = 0; u < MR; ++u) {
+    float* dst = Ct + (MR * tr + u) * LD + MR * tc;
+    if constexpr (MR == 4)
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[u][0], acc[u][1]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int r = wr + RS * s;
+    const int gi = i0 + r, gj = j0 + wc;
+    if (gi < n && gj < n && (i0 != j0 || wc <= r))
+      __stcg(at(a, lda, gi, gj), old[s] - Ct[r * LD + wc]);
+  }
+  __syncthreads();  // before the next tile's staging overwrites Ct
+}
+
+template <int T>
+__global__ void __launch_bounds__(THREADS)
+potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
+             int batch) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  using G = Geo<T>;
+  float* Ls = smem;
+  float* colbuf = Ls + T * G::LD1;
+  float* rinv = colbuf + 2 * T;
+  cg::grid_group grid = cg::this_grid();
+  const int nt = (n + T - 1) / T;
+  const int ctas = gridDim.x, me = blockIdx.x;
+
+  for (int b = 0; b < batch; ++b) {
+    float* a = a_base + b * batch_stride;
+    for (int k = 0; k < nt; ++k) {
+      const int k0 = k * T, kb = min(T, n - k0);
+      const int panel = nt - k;  // tiles (k..nt-1, k)
+      if (me < panel) {
+        // this CTA's first panel tile is loaded before the diagonal
+        // factor, so its latency hides behind it
+        const int p0 = (me == 0) ? ctas : me;
+        float xp[G::CPT], xd[G::CPT];
+        if (p0 < panel)
+          load_rows<T>(a, lda, k0 + p0 * T, min(T, n - k0 - p0 * T), k0, kb,
+                       false, xp);
+        load_rows<T>(a, lda, k0, kb, k0, kb, true, xd);
+        factor_diag<T>(xd, Ls, colbuf, rinv);
+        for (int p = p0; p < panel; p += ctas) {
+          const int i0 = k0 + p * T, ib = min(T, n - i0);
+          if (p != p0) load_rows<T>(a, lda, i0, ib, k0, kb, false, xp);
+          solve_panel<T>(xp, Ls, rinv, a, lda, i0, ib, k0, kb);
+        }
+      }
+      if (k == nt - 1) {
+        if (me == 0) write_diag<T>(a, lda, k0, kb, Ls);
+        break;
+      }
+      grid.sync();
+      if (me == 0) {
+        write_diag<T>(a, lda, k0, kb, Ls);
+        __syncthreads();
+      }
+      const int m = nt - k - 1;  // trailing tile rows
+      for (int idx = me; idx < m * (m + 1) / 2; idx += ctas) {
+        int ii = static_cast<int>((sqrtf(8.0f * idx + 1.0f) - 1.0f) * 0.5f);
+        while (ii * (ii + 1) / 2 > idx) --ii;
+        while ((ii + 1) * (ii + 2) / 2 <= idx) ++ii;
+        const int jj = idx - ii * (ii + 1) / 2;
+        update_tile<T>(a, lda, n, k0 + (ii + 1) * T, k0 + (jj + 1) * T, k0,
+                       kb, smem);
+      }
+      grid.sync();
+    }
+    // zeros above the diagonal (never read by the steps)
+    for (int r = me; r < n; r += ctas)
+      for (int c = r + 1 + static_cast<int>(threadIdx.x); c < n; c += THREADS)
+        __stcg(at(a, lda, r, c), 0.0f);
+  }
+}
+
+// Co-resident CTAs of the kernel on the current device, computed once.
+cudaError_t max_ctas(int* out) {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, potrf_kernel<TILE>, THREADS, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    cache[dev] = per_sm * sms;
+  }
+  *out = cache[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
+
+// The grid the launcher takes for an (n, n) block: min(co-resident CTAs,
+// trailing tiles of step 0), at least 1.
+extern "C" int cugp_potrf_grid(int n, int* grid) {
+  int cap = 0;
+  cudaError_t err = max_ctas(&cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m = (n + TILE - 1) / TILE - 1;
+  const int tiles = m * (m + 1) / 2;
+  *grid = tiles < 1 ? 1 : (tiles < cap ? tiles : cap);
+  return 0;
+}
 
 // a: batch blocks of (n, n) fp32, row-major with leading dimension lda,
 // block b at a + b * batch_stride; factored in place (lower L, zeros above).
@@ -119,12 +380,11 @@ extern "C" int cugp_potrf(float* a, long long lda, long long batch_stride,
                           int n, int batch, void* stream) {
   if (n <= 0 || batch <= 0) return 0;
   if (n > MAXN || lda < n) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(NB + n) * (NB + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      potrf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  potrf_kernel<<<batch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, lda, batch_stride, n);
-  return static_cast<int>(cudaGetLastError());
+  int grid = 0;
+  int err = cugp_potrf_grid(n, &grid);
+  if (err != 0) return err;
+  void* args[] = {&a, &lda, &batch_stride, &n, &batch};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(potrf_kernel<TILE>), dim3(grid),
+      dim3(THREADS), args, SMEM_BYTES, static_cast<cudaStream_t>(stream)));
 }

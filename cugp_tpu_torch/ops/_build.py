@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, at first use, into ``cugp_tpu_torch/_build/``. The file name
-carries a hash of the sources and flags, so an edit rebuilds. The library
-is loaded with ``ctypes``; pointers and the stream travel as ``c_void_p``.
-Nothing here runs at import, so machines without ``nvcc`` import every
-module; a failed build raises with nvcc's stderr.
+``nvcc`` compiles every ``csrc/*.cu`` (one process a source, all started
+together) and links them into one shared library with a plain C
+interface, at first use, into ``cugp_tpu_torch/_build/``. The file name
+carries a hash of the sources, flags and defines, so an edit rebuilds.
+ptxas's resource report (registers, shared memory, spills) is kept
+beside the library. The library is loaded with ``ctypes``; pointers and
+the stream travel as ``c_void_p``. Nothing here runs at import, so
+machines without ``nvcc`` import every module; a failed build raises
+with nvcc's stderr.
 
 Each kernel's Python wrapper keeps a plain int ``LAUNCHES`` that it bumps
 where it launches its kernel, and nowhere else.
@@ -25,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of csrc/*.cu (every launcher returns its cudaError_t)
@@ -34,13 +37,15 @@ _SIGNATURES = {
     "cugp_cov": [_p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],
     # a, lda, batch_stride, n, batch, stream
     "cugp_potrf": [_p, _ll, _ll, _i, _i, _p],
+    # n, out: the grid cugp_potrf launches for an (n, n) block
+    "cugp_potrf_grid": [_i, ctypes.POINTER(_i)],
     # l, ldl, b, row_stride, col_stride, n, k, transpose, stream
     "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p],
     # x, v, scal, out, n, d, r, v_row_stride, v_col_stride, ldo, kind, stream
     "cugp_cov_matvec": [_p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p],
 }
 
-_lib = None
+_libs = {}
 
 
 def nvcc_path():
@@ -58,46 +63,77 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def library_path():
-    """Where the library for the current sources lives (built or not)."""
+def library_path(defines=()):
+    """Where the library for the current sources lives (built or not);
+    ``defines`` are extra ``-D`` macros (e.g. ``("CUGP_POTRF_TILE=32",)``)."""
     cus, cuhs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines])
+                       .encode())
     for f in cus + cuhs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libcugp_{h.hexdigest()[:16]}.so"
 
 
-def build():
+def ptxas_report(defines=()):
+    """ptxas's per-kernel report of the built library, by source name."""
+    path = library_path(defines).with_suffix(".ptxas.txt")
+    if not path.exists():
+        return {}
+    text = path.read_text()
+    return {name: body.strip() for name, body in
+            (part.split("\n", 1) for part in text.split("### ")[1:])}
+
+
+def build(defines=()):
     """Compile csrc/*.cu if this source hash has no library yet."""
-    so = library_path()
+    so = library_path(defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
     cus, _ = _sources()
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    tag = f"{so.stem}.{os.getpid()}"
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
+    cmds = [[nvcc_path(), *flags, "-c", str(cu), "-o", str(obj)]
+            for cu, obj in zip(cus, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    try:
+        for cmd, p, (_, err) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{err}")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".ptxas.txt").write_text("".join(
+        f"### {cu.name}\n{err}" for cu, (_, err) in zip(cus, outs)))
     os.replace(tmp, so)
     return so
 
 
-def lib():
+def lib(defines=()):
     """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+    key = tuple(defines)
+    if key not in _libs:
+        handle = ctypes.CDLL(str(build(key)))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         handle.cugp_error_string.argtypes = [ctypes.c_int]
         handle.cugp_error_string.restype = ctypes.c_char_p
-        _lib = handle
-    return _lib
+        _libs[key] = handle
+    return _libs[key]
 
 
 def check(err, name):

@@ -4,16 +4,21 @@ Replaces ``cugp_tpu/ops/chol_pallas.py::_potrf_kernel``, the base case of
 the recursive factorization. Unlike the Pallas kernel (n % 128 == 0,
 block held in VMEM) it takes any n <= 1024 and factors a diagonal block
 of the caller's buffer in place, reading only the lower triangle. On the
-H100 it runs on one SM per block, serial over 32-wide panels, with the
-block in global memory (L2-resident) and the panel in shared memory; it
-is expected to trail cuSOLVER, whose potrf serves only as the plain
-version here.
+H100 it is a tiled right-looking Cholesky on 32x32 tiles, run by one
+persistent grid of CTAs in a single cooperative launch: each step's
+panel tiles and trailing-update tiles are dealt round-robin over the
+CTAs, with a grid-wide barrier after each phase (``grid_size`` says how
+many CTAs a block gets). The result does not depend on that number, and
+a batch equals the loop over its blocks bitwise. cuSOLVER's potrf
+(``torch.linalg.cholesky``) serves only as the plain version here.
 
-``potrf_`` launches the kernel for CUDA tensors and writes ``potrf_plain``
-for CPU tensors.
+``potrf_`` launches the kernel for CUDA tensors (a refused launch
+raises) and writes ``potrf_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -64,3 +69,13 @@ def potrf_(a):
 def potrf(a):
     """Out-of-place potrf_: the lower factor of a copy of ``a``."""
     return potrf_(a.clone(memory_format=torch.contiguous_format))
+
+
+def grid_size(n, device=None):
+    """The number of CTAs the kernel's launch takes for an (n, n) block
+    on ``device`` (the current CUDA device by default)."""
+    lib = _build.lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(lib.cugp_potrf_grid(n, ctypes.byref(out)), "potrf")
+    return out.value

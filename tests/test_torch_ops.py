@@ -198,6 +198,66 @@ def test_potrf_plain_matches_pallas(n):
     assert not np.triu(L.numpy(), 1).any()
 
 
+def _tiled_potrf_model(a, T):
+    """csrc/potrf.cu's tile loop in float32 PyTorch, for a CPU check of
+    the schedule the kernel runs. Step k: the diagonal tile, identity
+    padded past n, is factored right-looking (column j scaled by
+    1 / sqrt(pivot), then a rank-1 update of the lower trailing part), as
+    each panel owner does; every panel tile (i, k) is solved against it
+    by substitution, rows in parallel (x_j = a_j / L_jj, then
+    a_c -= x_j L_cj for c > j); every trailing tile (i, j), k < j <= i,
+    gets A_ij -= L_ik L_jk^T. Only the lower triangle is read."""
+    n = a.shape[0]
+    nt = -(-n // T)
+    A = a.clone()
+
+    def tile(i, j):
+        return A[i * T:min(n, (i + 1) * T), j * T:min(n, (j + 1) * T)]
+
+    for k in range(nt):
+        kb = min(T, n - k * T)
+        D = torch.eye(T)
+        D[:kb, :kb] = torch.tril(tile(k, k))
+        rinv = torch.empty(T)
+        for j in range(T):
+            d = torch.sqrt(D[j, j])
+            rinv[j] = 1.0 / d
+            col = D[j + 1:, j] * rinv[j]
+            D[j + 1:, j + 1:] -= torch.tril(torch.outer(col, col))
+            D[j + 1:, j] = col
+            D[j, j] = d
+        L_kk = torch.tril(D)
+        for i in range(k + 1, nt):
+            P = tile(i, k)
+            X = torch.zeros(T, T)
+            X[:P.shape[0], :kb] = P
+            for j in range(T):
+                X[:, j] *= rinv[j]
+                X[:, j + 1:] -= torch.outer(X[:, j], L_kk[j + 1:, j])
+            P.copy_(X[:P.shape[0], :kb])
+        tile(k, k).copy_(L_kk[:kb, :kb])
+        for i in range(k + 1, nt):
+            for j in range(k + 1, i + 1):
+                tile(i, j).sub_(tile(i, k) @ tile(j, k).T)
+    return torch.tril(A)
+
+
+@pytest.mark.parametrize("T", [32, 64])
+@pytest.mark.parametrize("n", [64, 128, 200, 256, 1000])
+def test_potrf_tile_schedule_model(n, T):
+    """The kernel's tile loop (one ragged tile at n=200 and 1000) against
+    potrf_plain, and at n % 128 == 0 against the Pallas potrf; rtol 1e-4
+    (cond 1e3: fp32 factors sit within cond * eps of each other)."""
+    a = _spd(n, seed=n)
+    garbage = a + np.triu(np.full_like(a, 5.0), 1)  # only the lower is read
+    L = _tiled_potrf_model(torch.tensor(garbage), T)
+    assert_close(L, chol_cuda.potrf_plain(torch.tensor(a)), rtol=1e-4,
+                 atol=1e-5)
+    if n in (128, 256):
+        L_pal = chol_pallas.potrf(jnp.asarray(a), interpret=True)
+        assert_close(L, L_pal, rtol=1e-4, atol=1e-5)
+
+
 def test_potrf_in_place_block_and_batch():
     """potrf_ factors a diagonal block of a larger buffer in place and
     leaves the rest alone; a batch equals the loop over its blocks."""
