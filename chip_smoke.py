@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phases=3,5 --profile   # a subset, profiled
-    python3 chip_smoke.py --phases=2 --potrf-tiles=32,64   # tile A/B
 
 Phases, one line of output each (or a few), failing fast with exit 1:
   0. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc
@@ -16,8 +15,6 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      non-PD block, a time per base-block size), TRSM and the fused
      covariance matvec, each beside its bound and, where one exists, the
      one PyTorch call that computes the same function;
-     --potrf-tiles=32,64 adds the potrf tile-edge A/B (a library built
-     per CUGP_POTRF_TILE);
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against a float64 scipy posterior, with each kernel's launch
@@ -129,11 +126,11 @@ def phase_build():
     print_ptxas("potrf.cu")
 
 
-def print_ptxas(source, defines=()):
+def print_ptxas(source):
     """ptxas's registers / shared memory / spills for one source's kernels."""
     from cugp_tpu_torch.ops import _build
 
-    for line in _build.ptxas_report(defines).get(source, "").splitlines():
+    for line in _build.ptxas_report().get(source, "").splitlines():
         if any(k in line for k in ("entry function", "Used", "spill")):
             say("ptxas", source=source, info=repr(line.strip()))
 
@@ -354,8 +351,9 @@ def phase_potrf(torch, dev, results):
     if grid[1024] <= 1:
         fail(f"potrf: one CTA at n=1024 (grid {grid[1024]})")
 
-    # small, ragged and base-block sizes; the upper triangle is ignored
-    for n in (8, 100, 200, 576, 1000, 1024):
+    # small, ragged and base-block sizes; the upper triangle is ignored.
+    # At 48 and 64 the grid is one CTA, which solves both panel tiles.
+    for n in (8, 48, 64, 100, 200, 576, 1000, 1024):
         A = _spd(torch, n, dev, n)
         garbage = A + torch.triu(torch.full_like(A, 7.0), 1)
         L = chol_cuda.potrf(garbage)
@@ -363,7 +361,8 @@ def phase_potrf(torch, dev, results):
         if float(torch.triu(L, 1).abs().max()) != 0.0:
             fail(f"potrf n={n}: nonzero above the diagonal")
         rec, err = check(f"n={n}", L, A)
-        say("potrf", n=n, recon_relerr=f"{rec:.3e}", L_err=f"{err:.3e}")
+        say("potrf", n=n, grid=chol_cuda.grid_size(n, dev),
+            recon_relerr=f"{rec:.3e}", L_err=f"{err:.3e}")
 
     # in place on a strided diagonal block of a 2048^2 buffer
     A = _spd(torch, 1024, dev, 7)
@@ -397,6 +396,19 @@ def phase_potrf(torch, dev, results):
         fail("potrf: two launches at n=1024 differ")
     say("potrf", case="two launches at n=1024", bitwise_equal=True)
 
+    # the grid size changes no bit: a block factored alone (G of its n)
+    # and as the leading block of diag(A, I) at n=1024 (G of 1024) runs
+    # the same tile sums
+    for n in (128, 576):
+        A = _spd(torch, n, dev, 17)
+        big = torch.eye(1024, device=dev)
+        big[:n, :n] = A
+        if not torch.equal(chol_cuda.potrf(big)[:n, :n], chol_cuda.potrf(A)):
+            fail(f"potrf: n={n} factored at G={grid[n]} and G={grid[1024]} "
+                 "differ")
+        say("potrf", case=f"n={n} at G={grid[n]} vs G={grid[1024]}",
+            bitwise_equal=True)
+
     # a block that is not PD factors to NaN, not to clamped garbage
     bad = _spd(torch, 576, dev, 5)
     bad[300, 300] = -50.0
@@ -421,38 +433,6 @@ def phase_potrf(torch, dev, results):
                    "bound_ms": b_ms, "bound_by": b_by, "grid": grid[n]}
     say("potrf", max_abs_err=f"{worst:.3e}")
     results["potrf"] = {"max_abs_err": worst, **by_n[1024], "by_n": by_n}
-
-
-def phase_potrf_tiles(torch, dev, tiles):
-    """The tile edge A/B: the library built with each CUGP_POTRF_TILE,
-    timed at n = 128, 576, 1024 in turns (a, b, b, a), each checked
-    against torch.linalg.cholesky."""
-    from cugp_tpu_torch.ops import _build
-
-    libs = {}
-    for t in tiles:
-        defines = (f"CUGP_POTRF_TILE={t}",)
-        libs[t] = _build.lib(defines)
-        print_ptxas("potrf.cu", defines)
-
-    def run(t, A):
-        L = A.clone()
-        _build.check(libs[t].cugp_potrf(L.data_ptr(), L.stride(0), 0,
-                                        L.shape[0], 1, _build.stream_of(L)),
-                     "potrf")
-        return L
-
-    for n in (128, 576, 1024):
-        A = _spd(torch, n, dev, 11)
-        ref = torch.linalg.cholesky(A)
-        times = {t: [] for t in tiles}
-        for t in list(tiles) + list(reversed(tiles)):
-            err = float((run(t, A) - ref).abs().max())
-            if not err <= 1e-4 * float(ref.abs().max()):
-                fail(f"potrf tile {t} n={n}: L err {err:.3e}")
-            times[t].append(cuda_ms(lambda: run(t, A), reps=10))
-        say("potrf_tiles", n=n, **{f"T{t}_ms": ",".join(
-            f"{v:.4f}" for v in times[t]) for t in tiles})
 
 
 def phase_trsm(torch, dev, results):
@@ -876,9 +856,6 @@ def main(argv):
         phase_potrf(torch, dev, results)
         phase_trsm(torch, dev, results)
         phase_cov_matvec(torch, dev, results)
-    if "--potrf-tiles" in opts:
-        phase_potrf_tiles(torch, dev, [int(t) for t in
-                                       opts["--potrf-tiles"].split(",")])
     if 3 in phases:
         paths["dense"] = phase_main(torch, dev, profile="--profile" in opts)
     if 4 in phases:

@@ -30,8 +30,8 @@
 //   2. update: the tiles (i, j), k < j <= i, are dealt round-robin;
 //      A_ij -= L_ik L_jk^T with both panels staged transposed in shared
 //      memory (all loads issued first) and a register micro-tile of
-//      (T/16)^2 outputs a thread, read as float2/float4: half a shared
-//      load an FMA at T = 32 (a quarter at 64), not 2.
+//      2 x 2 outputs a thread, read as float2: half a shared load an
+//      FMA, not 2.
 // Each phase ends in a grid barrier (cooperative_groups); tiles other
 // CTAs wrote in this launch are read past L1 (__ldcg), which is not
 // coherent across SMs. A tile's sums run in a fixed order whoever owns
@@ -41,14 +41,10 @@
 // block is written. A non-positive pivot gives sqrtf of a negative
 // number: NaN, which propagates, so callers can detect a failed
 // factorization. Fp32 FMA only (no tensor cores: their only fp32 path
-// is TF32). CUGP_POTRF_TILE=64 builds the other tile edge for an A/B.
+// is TF32).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-#ifndef CUGP_POTRF_TILE
-#define CUGP_POTRF_TILE 32
-#endif
 
 namespace cg = cooperative_groups;
 
@@ -56,24 +52,16 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAXN = 1024;
-constexpr int TILE = CUGP_POTRF_TILE;
-static_assert(TILE == 32 || TILE == 64, "potrf tile must be 32 or 64");
-
-template <int T>
-struct Geo {
-  static constexpr int RG = THREADS / T;  // threads a row in the panel phase
-  static constexpr int CPT = T / RG;      // columns each of them holds
-  static constexpr int LD1 = T + 1;       // row stride of L_kk in shared memory
-  static constexpr int LD2 = T + 4;       // row stride of update tiles
-  static constexpr int MR = T / 16;       // update micro-tile edge
-  // floats: L_kk, two column buffers, 1 / L_jj
-  static constexpr int SMEM1 = T * LD1 + 3 * T;
-  // floats: the two transposed panels of the update
-  static constexpr int SMEM2 = 2 * T * LD2;
-  static constexpr int SMEM = SMEM1 > SMEM2 ? SMEM1 : SMEM2;
-};
-
-constexpr size_t SMEM_BYTES = Geo<TILE>::SMEM * sizeof(float);
+constexpr int T = 32;             // tile edge
+constexpr int RG = THREADS / T;   // threads a row in the panel phase
+constexpr int CPT = T / RG;       // columns each of them holds
+constexpr int LD1 = T + 1;        // row stride of L_kk in shared memory
+constexpr int LD2 = T + 4;        // row stride of update tiles
+constexpr int MR = 2;  // update micro-tile edge: 16 x 16 threads, float2 reads
+// floats: L_kk, two column buffers and 1 / L_jj; or the two transposed
+// panels of the update
+constexpr int SMEM1 = T * LD1 + 3 * T, SMEM2 = 2 * T * LD2;
+constexpr size_t SMEM_BYTES = (SMEM1 > SMEM2 ? SMEM1 : SMEM2) * sizeof(float);
 
 __device__ __forceinline__ float* at(float* a, long long lda, int r, int c) {
   return a + static_cast<long long>(r) * lda + c;
@@ -83,15 +71,13 @@ __device__ __forceinline__ float* at(float* a, long long lda, int r, int c) {
 // thread (r, q)'s registers (rows x cols valid). A diagonal tile keeps
 // only its lower part and is identity padded past n; a panel tile is
 // zero padded. The loads are independent, so their latencies overlap.
-template <int T>
 __device__ __forceinline__ void load_rows(const float* a, long long lda,
                                           int r0, int rows, int c0, int cols,
-                                          bool diag, float (&x)[Geo<T>::CPT]) {
-  using G = Geo<T>;
-  const int r = threadIdx.x / G::RG, q = threadIdx.x % G::RG;
+                                          bool diag, float (&x)[CPT]) {
+  const int r = threadIdx.x / RG, q = threadIdx.x % RG;
 #pragma unroll
-  for (int t = 0; t < G::CPT; ++t) {
-    const int c = q + G::RG * t;
+  for (int t = 0; t < CPT; ++t) {
+    const int c = q + RG * t;
     float v = 0.0f;
     if (r < rows && c < cols && (!diag || c <= r))
       v = __ldcg(a + static_cast<long long>(r0 + r) * lda + c0 + c);
@@ -106,31 +92,29 @@ __device__ __forceinline__ void load_rows(const float* a, long long lda,
 // Column j is published to a double buffer, and after one barrier every
 // thread scales it by 1 / sqrt(pivot) itself, so L_cj is the same product
 // wherever it is used.
-template <int T>
-__device__ void factor_diag(float (&x)[Geo<T>::CPT], float* Ls,
+__device__ void factor_diag(float (&x)[CPT], float* Ls,
                             float* colbuf, float* rinv) {
-  using G = Geo<T>;
   const int tid = threadIdx.x;
-  const int r = tid / G::RG, q = tid % G::RG;
+  const int r = tid / RG, q = tid % RG;
 #pragma unroll
   for (int j = 0; j < T; ++j) {
     float* col = colbuf + (j & 1) * T;
-    if (q == j % G::RG) col[r] = x[j / G::RG];
+    if (q == j % RG) col[r] = x[j / RG];
     __syncthreads();
     const float d = sqrtf(col[j]);
     const float ri = 1.0f / d;
     const float lr = __fmul_rn(col[r], ri);
-    if (q == j % G::RG && r >= j) x[j / G::RG] = (r == j) ? d : lr;
+    if (q == j % RG && r >= j) x[j / RG] = (r == j) ? d : lr;
 #pragma unroll
-    for (int t = j / G::RG; t < G::CPT; ++t) {
-      const int c = q + G::RG * t;
+    for (int t = j / RG; t < CPT; ++t) {
+      const int c = q + RG * t;
       if (c > j && c <= r)
         x[t] = __fmaf_rn(-lr, __fmul_rn(col[c], ri), x[t]);
     }
     if (tid == 0) rinv[j] = ri;
   }
 #pragma unroll
-  for (int t = 0; t < G::CPT; ++t) Ls[r * G::LD1 + q + G::RG * t] = x[t];
+  for (int t = 0; t < CPT; ++t) Ls[r * LD1 + q + RG * t] = x[t];
   __syncthreads();
 }
 
@@ -138,38 +122,35 @@ __device__ void factor_diag(float (&x)[Geo<T>::CPT], float* Ls,
 // substitution with rows in parallel: x_j = a_j / L_jj is passed along
 // the row's RG threads by shuffle, then a_c -= x_j L_cj for c > j. No
 // block-wide barrier. Written in place (rows x cols valid).
-template <int T>
-__device__ void solve_panel(float (&x)[Geo<T>::CPT], const float* Ls,
+__device__ void solve_panel(float (&x)[CPT], const float* Ls,
                             const float* rinv, float* a, long long lda,
                             int i0, int rows, int k0, int cols) {
-  using G = Geo<T>;
-  const int r = threadIdx.x / G::RG, q = threadIdx.x % G::RG;
+  const int r = threadIdx.x / RG, q = threadIdx.x % RG;
 #pragma unroll
   for (int j = 0; j < T; ++j) {
-    const float v = __fmul_rn(x[j / G::RG], rinv[j]);
-    const float xj = __shfl_sync(0xffffffffu, v, j % G::RG, G::RG);
-    if (q == j % G::RG) x[j / G::RG] = xj;
+    const float v = __fmul_rn(x[j / RG], rinv[j]);
+    const float xj = __shfl_sync(0xffffffffu, v, j % RG, RG);
+    if (q == j % RG) x[j / RG] = xj;
 #pragma unroll
-    for (int t = j / G::RG; t < G::CPT; ++t) {
-      const int c = q + G::RG * t;
-      if (c > j) x[t] = __fmaf_rn(-xj, Ls[c * G::LD1 + j], x[t]);
+    for (int t = j / RG; t < CPT; ++t) {
+      const int c = q + RG * t;
+      if (c > j) x[t] = __fmaf_rn(-xj, Ls[c * LD1 + j], x[t]);
     }
   }
 #pragma unroll
-  for (int t = 0; t < G::CPT; ++t) {
-    const int c = q + G::RG * t;
+  for (int t = 0; t < CPT; ++t) {
+    const int c = q + RG * t;
     if (r < rows && c < cols) __stcg(at(a, lda, i0 + r, k0 + c), x[t]);
   }
 }
 
 // The lower part of L_kk (in Ls) to the diagonal tile at (k0, k0).
-template <int T>
 __device__ void write_diag(float* a, long long lda, int k0, int kb,
                            const float* Ls) {
   for (int e = threadIdx.x; e < T * T; e += THREADS) {
     const int r = e / T, c = e % T;
     if (r < kb && c <= r)
-      __stcg(at(a, lda, k0 + r, k0 + c), Ls[r * Geo<T>::LD1 + c]);
+      __stcg(at(a, lda, k0 + r, k0 + c), Ls[r * LD1 + c]);
   }
 }
 
@@ -177,7 +158,6 @@ __device__ void write_diag(float* a, long long lda, int k0, int kb,
 // v[s] = A[row0 + r][k0 + m] with (r, m) = rm(s). A warp reads 4 rows x 8
 // columns (one 32-byte sector a row); with the row stride T + 4 the
 // transposed stores dst[m][r] fall in 32 distinct banks.
-template <int T>
 struct Stage {
   static constexpr int RB = T / 4;
   static constexpr int PER = (T / 4) * (T / 8) / (THREADS / 32);
@@ -201,34 +181,31 @@ struct Stage {
   }
   __device__ static void store(const float (&v)[PER], float* dst) {
 #pragma unroll
-    for (int s = 0; s < PER; ++s) dst[col(s) * Geo<T>::LD2 + row(s)] = v[s];
+    for (int s = 0; s < PER; ++s) dst[col(s) * LD2 + row(s)] = v[s];
   }
 };
 
 // A_ij -= L_ik L_jk^T for the tile at rows i0.., columns j0.., panel
 // columns k0.. (kb valid); on a diagonal tile (i0 == j0) only entries on
 // or below the diagonal are written.
-template <int T>
 __device__ void update_tile(float* a, long long lda, int n, int i0, int j0,
                             int k0, int kb, float* smem) {
-  using G = Geo<T>;
-  constexpr int MR = G::MR, LD = G::LD2;
   constexpr int RS = THREADS / T, NS = T / RS;  // write-back rows a pass
   const int tid = threadIdx.x;
   const int wc = tid % T, wr = tid / T;
   // every load issued before any use: both panels, then the old values
-  float pv[Stage<T>::PER], qv_[Stage<T>::PER], old[NS];
-  Stage<T>::load(a, lda, n, i0, k0, kb, pv);
-  Stage<T>::load(a, lda, n, j0, k0, kb, qv_);
+  float pv[Stage::PER], qv_[Stage::PER], old[NS];
+  Stage::load(a, lda, n, i0, k0, kb, pv);
+  Stage::load(a, lda, n, j0, k0, kb, qv_);
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     const int gi = i0 + wr + RS * s, gj = j0 + wc;
     old[s] = (gi < n && gj < n) ? __ldcg(at(a, lda, gi, gj)) : 0.0f;
   }
   float* Pt = smem;           // Pt[m][r] = L_ik[r][m]
-  float* Qt = smem + T * LD;  // Qt[m][c] = L_jk[c][m]
-  Stage<T>::store(pv, Pt);
-  Stage<T>::store(qv_, Qt);
+  float* Qt = smem + T * LD2;  // Qt[m][c] = L_jk[c][m]
+  Stage::store(pv, Pt);
+  Stage::store(qv_, Qt);
   __syncthreads();
   const int tr = tid / 16, tc = tid % 16;
   float acc[MR][MR];
@@ -238,54 +215,39 @@ __device__ void update_tile(float* a, long long lda, int n, int i0, int j0,
     for (int v = 0; v < MR; ++v) acc[u][v] = 0.0f;
 #pragma unroll 8
   for (int m = 0; m < T; ++m) {
-    float p[MR], qv[MR];
-    if constexpr (MR == 4) {
-      const float4 p4 = *reinterpret_cast<const float4*>(Pt + m * LD + 4 * tr);
-      const float4 q4 = *reinterpret_cast<const float4*>(Qt + m * LD + 4 * tc);
-      p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
-      qv[0] = q4.x; qv[1] = q4.y; qv[2] = q4.z; qv[3] = q4.w;
-    } else {
-      const float2 p2 = *reinterpret_cast<const float2*>(Pt + m * LD + 2 * tr);
-      const float2 q2 = *reinterpret_cast<const float2*>(Qt + m * LD + 2 * tc);
-      p[0] = p2.x; p[1] = p2.y;
-      qv[0] = q2.x; qv[1] = q2.y;
-    }
+    const float2 p2 = *reinterpret_cast<const float2*>(Pt + m * LD2 + 2 * tr);
+    const float2 q2 = *reinterpret_cast<const float2*>(Qt + m * LD2 + 2 * tc);
+    const float p[MR] = {p2.x, p2.y}, qv[MR] = {q2.x, q2.y};
 #pragma unroll
     for (int u = 0; u < MR; ++u)
 #pragma unroll
-      for (int v = 0; v < MR; ++v) acc[u][v] = __fmaf_rn(p[u], qv[v], acc[u][v]);
+      for (int v = 0; v < MR; ++v)
+        acc[u][v] = __fmaf_rn(p[u], qv[v], acc[u][v]);
   }
   __syncthreads();  // the panels are read; reuse their space for the sums
-  float* Ct = smem;  // Ct[r][c], row stride LD
+  float* Ct = smem;  // Ct[r][c], row stride LD2
 #pragma unroll
-  for (int u = 0; u < MR; ++u) {
-    float* dst = Ct + (MR * tr + u) * LD + MR * tc;
-    if constexpr (MR == 4)
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-    else
-      *reinterpret_cast<float2*>(dst) = make_float2(acc[u][0], acc[u][1]);
-  }
+  for (int u = 0; u < MR; ++u)
+    *reinterpret_cast<float2*>(Ct + (MR * tr + u) * LD2 + MR * tc) =
+        make_float2(acc[u][0], acc[u][1]);
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
     const int r = wr + RS * s;
     const int gi = i0 + r, gj = j0 + wc;
     if (gi < n && gj < n && (i0 != j0 || wc <= r))
-      __stcg(at(a, lda, gi, gj), old[s] - Ct[r * LD + wc]);
+      __stcg(at(a, lda, gi, gj), old[s] - Ct[r * LD2 + wc]);
   }
   __syncthreads();  // before the next tile's staging overwrites Ct
 }
 
-template <int T>
 __global__ void __launch_bounds__(THREADS)
 potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
              int batch) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  using G = Geo<T>;
   float* Ls = smem;
-  float* colbuf = Ls + T * G::LD1;
+  float* colbuf = Ls + T * LD1;
   float* rinv = colbuf + 2 * T;
   cg::grid_group grid = cg::this_grid();
   const int nt = (n + T - 1) / T;
@@ -300,25 +262,25 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
         // this CTA's first panel tile is loaded before the diagonal
         // factor, so its latency hides behind it
         const int p0 = (me == 0) ? ctas : me;
-        float xp[G::CPT], xd[G::CPT];
+        float xp[CPT], xd[CPT];
         if (p0 < panel)
-          load_rows<T>(a, lda, k0 + p0 * T, min(T, n - k0 - p0 * T), k0, kb,
-                       false, xp);
-        load_rows<T>(a, lda, k0, kb, k0, kb, true, xd);
-        factor_diag<T>(xd, Ls, colbuf, rinv);
+          load_rows(a, lda, k0 + p0 * T, min(T, n - k0 - p0 * T), k0, kb,
+                    false, xp);
+        load_rows(a, lda, k0, kb, k0, kb, true, xd);
+        factor_diag(xd, Ls, colbuf, rinv);
         for (int p = p0; p < panel; p += ctas) {
           const int i0 = k0 + p * T, ib = min(T, n - i0);
-          if (p != p0) load_rows<T>(a, lda, i0, ib, k0, kb, false, xp);
-          solve_panel<T>(xp, Ls, rinv, a, lda, i0, ib, k0, kb);
+          if (p != p0) load_rows(a, lda, i0, ib, k0, kb, false, xp);
+          solve_panel(xp, Ls, rinv, a, lda, i0, ib, k0, kb);
         }
       }
       if (k == nt - 1) {
-        if (me == 0) write_diag<T>(a, lda, k0, kb, Ls);
+        if (me == 0) write_diag(a, lda, k0, kb, Ls);
         break;
       }
       grid.sync();
       if (me == 0) {
-        write_diag<T>(a, lda, k0, kb, Ls);
+        write_diag(a, lda, k0, kb, Ls);
         __syncthreads();
       }
       const int m = nt - k - 1;  // trailing tile rows
@@ -327,8 +289,8 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
         while (ii * (ii + 1) / 2 > idx) --ii;
         while ((ii + 1) * (ii + 2) / 2 <= idx) ++ii;
         const int jj = idx - ii * (ii + 1) / 2;
-        update_tile<T>(a, lda, n, k0 + (ii + 1) * T, k0 + (jj + 1) * T, k0,
-                       kb, smem);
+        update_tile(a, lda, n, k0 + (ii + 1) * T, k0 + (jj + 1) * T, k0, kb,
+                    smem);
       }
       grid.sync();
     }
@@ -351,7 +313,7 @@ cudaError_t max_ctas(int* out) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, potrf_kernel<TILE>, THREADS, SMEM_BYTES);
+        &per_sm, potrf_kernel, THREADS, SMEM_BYTES);
     if (err != cudaSuccess) return err;
     if (per_sm <= 0) return cudaErrorInvalidConfiguration;
     cache[dev] = per_sm * sms;
@@ -368,7 +330,7 @@ extern "C" int cugp_potrf_grid(int n, int* grid) {
   int cap = 0;
   cudaError_t err = max_ctas(&cap);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int m = (n + TILE - 1) / TILE - 1;
+  const int m = (n + T - 1) / T - 1;
   const int tiles = m * (m + 1) / 2;
   *grid = tiles < 1 ? 1 : (tiles < cap ? tiles : cap);
   return 0;
@@ -385,6 +347,6 @@ extern "C" int cugp_potrf(float* a, long long lda, long long batch_stride,
   if (err != 0) return err;
   void* args[] = {&a, &lda, &batch_stride, &n, &batch};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(potrf_kernel<TILE>), dim3(grid),
+      reinterpret_cast<const void*>(potrf_kernel), dim3(grid),
       dim3(THREADS), args, SMEM_BYTES, static_cast<cudaStream_t>(stream)));
 }

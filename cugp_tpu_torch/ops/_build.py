@@ -3,7 +3,7 @@
 ``nvcc`` compiles every ``csrc/*.cu`` (one process a source, all started
 together) and links them into one shared library with a plain C
 interface, at first use, into ``cugp_tpu_torch/_build/``. The file name
-carries a hash of the sources, flags and defines, so an edit rebuilds.
+carries a hash of the sources and flags, so an edit rebuilds.
 ptxas's resource report (registers, shared memory, spills) is kept
 beside the library. The library is loaded with ``ctypes``; pointers and
 the stream travel as ``c_void_p``. Nothing here runs at import, so
@@ -45,7 +45,7 @@ _SIGNATURES = {
     "cugp_cov_matvec": [_p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p],
 }
 
-_libs = {}
+_lib = None
 
 
 def nvcc_path():
@@ -63,21 +63,19 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(defines=()):
-    """Where the library for the current sources lives (built or not);
-    ``defines`` are extra ``-D`` macros (e.g. ``("CUGP_POTRF_TILE=32",)``)."""
+def library_path():
+    """Where the library for the current sources lives (built or not)."""
     cus, cuhs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines])
-                       .encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in cus + cuhs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libcugp_{h.hexdigest()[:16]}.so"
 
 
-def ptxas_report(defines=()):
+def ptxas_report():
     """ptxas's per-kernel report of the built library, by source name."""
-    path = library_path(defines).with_suffix(".ptxas.txt")
+    path = library_path().with_suffix(".ptxas.txt")
     if not path.exists():
         return {}
     text = path.read_text()
@@ -85,17 +83,16 @@ def ptxas_report(defines=()):
             (part.split("\n", 1) for part in text.split("### ")[1:])}
 
 
-def build(defines=()):
+def build():
     """Compile csrc/*.cu if this source hash has no library yet."""
-    so = library_path(defines)
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
     tag = f"{so.stem}.{os.getpid()}"
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
-    cmds = [[nvcc_path(), *flags, "-c", str(cu), "-o", str(obj)]
+    cmds = [[nvcc_path(), *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
             for cu, obj in zip(cus, objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -121,19 +118,19 @@ def build(defines=()):
     return so
 
 
-def lib(defines=()):
+def lib():
     """The loaded kernel library (built on first call)."""
-    key = tuple(defines)
-    if key not in _libs:
-        handle = ctypes.CDLL(str(build(key)))
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         handle.cugp_error_string.argtypes = [ctypes.c_int]
         handle.cugp_error_string.restype = ctypes.c_char_p
-        _libs[key] = handle
-    return _libs[key]
+        _lib = handle
+    return _lib
 
 
 def check(err, name):
