@@ -124,6 +124,7 @@ def phase_build():
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         library=so.name)
     print_ptxas("potrf.cu")
+    print_ptxas("trsm.cu")
 
 
 def print_ptxas(source):
@@ -435,81 +436,147 @@ def phase_potrf(torch, dev, results):
     results["potrf"] = {"max_abs_err": worst, **by_n[1024], "by_n": by_n}
 
 
-def phase_trsm(torch, dev, results):
+TRSM_GATE_N = (8, 100, 128, 1000, 1024)
+TRSM_GATE_K = (1, 9, 16, 17, 100, 1024)  # narrow up to 16, wide from 17
+TRSM_TIMED = ((1024, 1), (1024, 16), (1024, 1024), (1024, 4096), (128, 9))
+
+
+def _trsm_residual(L, X, B0, left, transpose):
+    """max |op(L) X - B| / max |B| (op(L) X for left, X op(L) for right)."""
+    opL = L.T if transpose else L
+    res = (opL @ X if left else X @ opL) - B0
+    return float(res.abs().max() / B0.abs().max())
+
+
+def phase_trsm(torch, dev, results, profile=False):
     from cugp_tpu_torch.ops import chol_cuda, trsm_cuda
 
     worst = 0.0
     gen = torch.Generator().manual_seed(3)
+
+    def check(tag, Lk, L, B, left, transpose):
+        """Solve in place with the kernel on Lk (L, or L with a stale
+        upper triangle), gate the residual against the clean L."""
+        nonlocal worst
+        B0 = B.clone()
+        trsm_cuda.trsm_(Lk, B, left, transpose)
+        torch.cuda.synchronize()
+        rel = _trsm_residual(L, B, B0, left, transpose)
+        err = float((B - trsm_cuda.trsm_plain(L, B0, left, transpose)
+                     ).abs().max())
+        worst = max(worst, err)
+        if not rel <= 1e-5:
+            fail(f"trsm {tag}: residual {rel:.3e} (bar 1e-5)")
+        return rel
+
+    # both routes, ragged n, the k threshold, both sides and transposes,
+    # L with 7.0 above its diagonal (only the lower triangle is read)
+    for n in TRSM_GATE_N:
+        L = chol_cuda.potrf(_spd(torch, n, dev, 20 + n))
+        stale = L + torch.triu(torch.full_like(L, 7.0), 1)
+        rels = []
+        for k in TRSM_GATE_K:
+            for left in (True, False):
+                for transpose in (False, True):
+                    shape = (n, k) if left else (k, n)
+                    B = torch.randn(*shape, generator=gen).to(dev)
+                    rels.append(check(f"n={n} k={k} left={left} transpose="
+                                      f"{transpose} (stale upper)", stale, L,
+                                      B, left, transpose))
+        say("trsm", n=n, ks=",".join(map(str, TRSM_GATE_K)),
+            cases=len(rels), stale_upper=7.0,
+            max_residual=f"{max(rels):.3e}")
+
+    # in place on strided views of larger buffers (column stride 2, as
+    # the recursion's views can be): nothing outside B is written
     for n in (1000, 1024):
         L = chol_cuda.potrf(_spd(torch, n, dev, 20 + n))
         for k in (1, 4096):
             for left in (True, False):
                 for transpose in (False, True):
                     if left:
-                        buf = torch.randn(n + 8, 2 * k, generator=gen)
-                        buf = buf.to(dev)
+                        buf = torch.randn(n + 8, 2 * k, generator=gen).to(dev)
                         B = buf[4:4 + n, ::2]
                     else:
-                        buf = torch.randn(2 * k, n + 8, generator=gen)
-                        buf = buf.to(dev)
+                        buf = torch.randn(2 * k, n + 8, generator=gen).to(dev)
                         B = buf[::2, 4:4 + n]
-                    B0 = B.clone()
                     before = buf.clone()
-                    trsm_cuda.trsm_(L, B, left, transpose)
-                    torch.cuda.synchronize()
-                    X = B
-                    opL = L.T if transpose else L
-                    res = (opL @ X if left else X @ opL) - B0
-                    rel = float(res.abs().max() / B0.abs().max())
-                    want = trsm_cuda.trsm_plain(L, B0, left, transpose)
-                    err = float((X - want).abs().max())
-                    worst = max(worst, err)
+                    tag = f"n={n} k={k} left={left} transpose={transpose}"
+                    rel = check(tag + " strided", L, L, B, left, transpose)
                     mask = torch.ones_like(buf, dtype=torch.bool)
                     if left:
                         mask[4:4 + n, ::2] = False
                     else:
                         mask[::2, 4:4 + n] = False
-                    tag = (f"n={n} k={k} left={left} "
-                           f"transpose={transpose}")
                     if not torch.equal(buf[mask], before[mask]):
                         fail(f"trsm {tag}: wrote outside B")
-                    if not rel <= 1e-5:
-                        fail(f"trsm {tag}: residual {rel:.3e} (bar 1e-5)")
-                    say("trsm", case=tag.replace(" ", ","),
-                        residual=f"{rel:.3e}", err_vs_plain=f"{err:.3e}")
+                    say("trsm", case=tag.replace(" ", ",") + ",strided",
+                        residual=f"{rel:.3e}")
+
+    # L as a view with an odd leading dimension: the scalar-load path
+    n = 1000
+    A = _spd(torch, n, dev, 31)
+    big = torch.zeros(n + 3, n + 5, device=dev)
+    Lv = big[1:1 + n, 3:3 + n]
+    Lv.copy_(chol_cuda.potrf(A) + torch.triu(torch.full_like(A, 7.0), 1))
+    L = torch.tril(Lv)
+    for k in (1, 9, 100):
+        for transpose in (False, True):
+            B = torch.randn(n, k, generator=gen).to(dev)
+            rel = check(f"odd ldl={Lv.stride(0)} k={k} transpose={transpose}",
+                        Lv, L, B, True, transpose)
+            say("trsm", case=f"ldl={Lv.stride(0)},offset=3,k={k},"
+                f"transpose={transpose}", residual=f"{rel:.3e}")
+
+    # two launches bitwise equal (both routes); the leading 64 columns of
+    # a k=4096 solve (32-column slabs) equal the same columns solved at
+    # k=64 (8-column slabs)
     L = chol_cuda.potrf(_spd(torch, 1024, dev, 9))
-    B = torch.randn(1024, 4096, generator=gen).to(dev)
-    ms = cuda_ms(lambda: trsm_cuda.trsm(L, B))
-    plain_ms = cuda_ms(lambda: trsm_cuda.trsm_plain(L, B))
-    library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
-        L, B, upper=False))
-    b1 = B[:, :1].contiguous()
-    ms1 = cuda_ms(lambda: trsm_cuda.trsm(L, b1))
-    plain_ms1 = cuda_ms(lambda: trsm_cuda.trsm_plain(L, b1))
-    # the preconditioner's solve: n = rank = 128, k = 1 + probes = 9
-    L128 = chol_cuda.potrf(_spd(torch, 128, dev, 12))
-    b9 = torch.randn(128, 9, generator=gen).to(dev)
-    ms128 = cuda_ms(lambda: trsm_cuda.trsm(L128, b9))
-    lib128 = cuda_ms(lambda: torch.linalg.solve_triangular(L128, b9,
-                                                           upper=False))
-    b_ms, b_by = _trsm_bound(1024, 4096)
-    b1_ms, b1_by = _trsm_bound(1024, 1)
-    b128_ms, b128_by = _trsm_bound(128, 9)
-    say("trsm", shape="n=1024 k=4096", kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-        bound_ms=f"{b_ms:.5f}", bound_by=b_by)
-    say("trsm", shape="n=1024 k=1", kernel_ms=f"{ms1:.4f}",
-        plain_ms=f"{plain_ms1:.4f}", bound_ms=f"{b1_ms:.7f}",
-        bound_by=b1_by)
-    say("trsm", shape="n=128 k=9", kernel_ms=f"{ms128:.4f}",
-        library_ms=f"{lib128:.4f}", bound_ms=f"{b128_ms:.7f}",
-        bound_by=b128_by, max_abs_err=f"{worst:.3e}")
-    results["trsm"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": library_ms, "k1_ms": ms1,
-                       "k1_plain_ms": plain_ms1, "k1_bound_ms": b1_ms,
-                       "n128_k9_ms": ms128, "n128_k9_library_ms": lib128,
-                       "n128_k9_bound_ms": b128_ms}
+    for transpose in (False, True):
+        for k in (1, 9, 1024):
+            B = torch.randn(1024, k, generator=gen).to(dev)
+            if not torch.equal(trsm_cuda.trsm(L, B, True, transpose),
+                               trsm_cuda.trsm(L, B, True, transpose)):
+                fail(f"trsm: two launches at k={k} transpose={transpose} "
+                     "differ")
+        B = torch.randn(1024, 4096, generator=gen).to(dev)
+        wide = trsm_cuda.trsm(L, B, True, transpose)[:, :64]
+        if not torch.equal(wide, trsm_cuda.trsm(L, B[:, :64].contiguous(),
+                                                True, transpose)):
+            fail(f"trsm: k=4096 and k=64 differ in the leading 64 columns "
+                 f"(transpose={transpose})")
+        say("trsm", case="repeat_k=1/9/1024,slab_width_k=4096_vs_64",
+            transpose=transpose, bitwise_equal=True)
+
+    by_shape = {}
+    for n, k in TRSM_TIMED:
+        L = chol_cuda.potrf(_spd(torch, n, dev, 9 + n))
+        B = torch.randn(n, k, generator=gen).to(dev)
+        ms = cuda_ms(lambda: trsm_cuda.trsm(L, B), reps=10)
+        plain_ms = cuda_ms(lambda: trsm_cuda.trsm_plain(L, B), reps=10)
+        library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+            L, B, upper=False), reps=10)
+        # the host's time to issue one call (no synchronize inside)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            trsm_cuda.trsm(L, B)
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        b_ms, b_by = _trsm_bound(n, k)
+        say("trsm", shape=f"n={n} k={k}", kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{b_ms:.7f}", bound_by=b_by,
+            host_issue_ms=f"{host_ms:.4f}")
+        by_shape[f"n={n} k={k}"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "host_issue_ms": host_ms}
+        if profile:  # device time by kernel: the trtri pass and the route
+            profile_device(torch, f"profile_trsm_n{n}_k{k}", lambda: [
+                trsm_cuda.trsm(L, B) for _ in range(10)])
+    say("trsm", max_abs_err_vs_plain=f"{worst:.3e}")
+    results["trsm"] = {"max_abs_err": worst, **by_shape["n=1024 k=4096"],
+                       "by_shape": by_shape}
 
 
 def _trsm_bound(n, k):
@@ -817,7 +884,8 @@ def profile_device(torch, tag, fn):
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     say(tag, wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
         idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows))
-    ours = ("cov_matvec_kernel", "cov_kernel", "potrf_kernel", "trsm_kernel")
+    ours = ("cov_matvec_kernel", "cov_kernel", "potrf_kernel", "trsm_trtri",
+            "trsm_narrow", "trsm_wide")
     for i, e in enumerate(rows):
         if i < 12 or any(k in e.key for k in ours):
             say(tag, kernel=repr(e.key[:60]), calls=e.count,
@@ -854,7 +922,7 @@ def main(argv):
     if 2 in phases:
         phase_cov(torch, dev, results)
         phase_potrf(torch, dev, results)
-        phase_trsm(torch, dev, results)
+        phase_trsm(torch, dev, results, profile="--profile" in opts)
         phase_cov_matvec(torch, dev, results)
     if 3 in phases:
         paths["dense"] = phase_main(torch, dev, profile="--profile" in opts)

@@ -39,8 +39,10 @@ _SIGNATURES = {
     "cugp_potrf": [_p, _ll, _ll, _i, _i, _p],
     # n, out: the grid cugp_potrf launches for an (n, n) block
     "cugp_potrf_grid": [_i, ctypes.POINTER(_i)],
-    # l, ldl, b, row_stride, col_stride, n, k, transpose, stream
-    "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p],
+    # l, ldl, b, row_stride, col_stride, n, k, transpose, scratch, stream
+    "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p, _p],
+    # n: floats of the scratch cugp_trsm takes for an (n, n) L
+    "cugp_trsm_scratch": [_i],
     # x, v, scal, out, n, d, r, v_row_stride, v_col_stride, ldo, kind, stream
     "cugp_cov_matvec": [_p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p],
 }
@@ -144,4 +146,4 @@ def stream_of(t):
     """PyTorch's current CUDA stream on t's device, as a pointer."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -1,25 +1,42 @@
-"""Diagonal-block triangular solve — the CUDA kernel ``csrc/trsm.cu``.
+"""Diagonal-block triangular solve — the CUDA kernels of ``csrc/trsm.cu``.
 
-Replaces ``cugp_tpu/ops/trsm_pallas.py::_trsm_kernel`` and its helper
-``chol_pallas._trtri_tile``: op(L) X = B for a lower block L (any
-n <= 1024) and op in {L, L^T}, overwriting B in place. Right-side solves
-(X op(L) = B) pass B's transposed view, so no copy is made. On the H100
-a single-column solve is one latency-bound CTA; wide right-hand sides
-(predict, the Cholesky recursion) are bound by the n^2/2 FMAs per column
-from shared memory, one 32-column slab per CTA.
+Replaces ``cugp_tpu/ops/trsm_pallas.py::_trsm_kernel`` (trsm_pallas.py:35)
+and its helper ``chol_pallas._trtri_tile`` (chol_pallas.py:54): op(L) X = B
+for a lower block L (any n <= 1024; only its lower triangle is read) and
+op in {L, L^T}, overwriting B in place. Right-side solves (X op(L) = B)
+pass B's transposed view, so no copy is made.
 
-``trsm_`` launches the kernel for CUDA tensors and writes ``trsm_plain``
-(``torch.linalg.solve_triangular``) for CPU tensors.
+As on the TPU, the diagonal tiles of L are inverted first (a trtri pass,
+one CTA a tile, into a scratch this wrapper allocates), and each panel of
+the solve is a strip update followed by a product with its inverted tile,
+so no per-column substitution chain is left. Two routes follow: for
+k <= 16 right-hand sides (the alpha solves, the preconditioner) the solve
+is bound by latency and by the bytes of L one SM pulls in, so one CTA a
+column streams the tiles of L ahead of use with cp.async; for wider k
+(predict, the Cholesky panel solves, Murray's backward) it is bound by
+fp32 FMA issue, so a grid of column slabs runs register-tiled products.
+
+``trsm_`` launches the kernels for CUDA tensors (or raises) and writes
+``trsm_plain`` (``torch.linalg.solve_triangular``) for CPU tensors.
+``LAUNCHES`` counts calls of ``trsm_`` that launched: one a solve, though
+each is a trtri launch and a solve launch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from cugp_tpu_torch.ops import _build
 
 MAX_N = 1024
-LAUNCHES = 0  # kernel launches by trsm_ (plain CPU calls do not count)
+LAUNCHES = 0  # solves trsm_ ran on the card (plain CPU calls do not count)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(n):
+    return _build.lib().cugp_trsm_scratch(n)
 
 
 def _vec_view(b, left):
@@ -54,21 +71,28 @@ def trsm_(l, b, left=True, transpose=False):
     n = l.shape[-1]
     if l.shape != (n, n) or b.ndim != 2 or b.shape[0] != n:
         raise ValueError(f"trsm_: L {tuple(l.shape)}, B {tuple(b.shape)}")
-    if b.device.type != "cuda":
+    if not b.is_cuda:
         b.copy_(trsm_plain(l, b, True, transpose))
         return b
+    dev = b.get_device()
     if (l.dtype != torch.float32 or b.dtype != torch.float32
-            or l.device != b.device or n > MAX_N or l.stride(-1) != 1):
+            or l.get_device() != dev or n > MAX_N or l.stride(-1) != 1):
         raise ValueError(f"trsm_ kernel takes float32 L with n <= {MAX_N} "
                          f"and unit column stride on B's device, got L "
                          f"{l.dtype} {tuple(l.shape)} {l.stride()} on "
                          f"{l.device}, B {b.dtype} on {b.device}")
-    k = b.shape[1]
     lib = _build.lib()
-    with torch.cuda.device(b.device):
-        err = lib.cugp_trsm(l.data_ptr(), l.stride(0), b.data_ptr(),
-                            b.stride(0), b.stride(1), n, k, int(transpose),
-                            _build.stream_of(b))
+    # the inverted diagonal tiles (256 KB at n = 1024)
+    scratch = torch.empty(_scratch_floats(n), dtype=torch.float32,
+                          device=b.device)
+    args = (l.data_ptr(), l.stride(0), b.data_ptr(), b.stride(0),
+            b.stride(1), n, b.shape[1], int(transpose), scratch.data_ptr(),
+            _build.stream_of(b))
+    if dev == torch.cuda.current_device():
+        err = lib.cugp_trsm(*args)
+    else:
+        with torch.cuda.device(b.device):
+            err = lib.cugp_trsm(*args)
     _build.check(err, "trsm")
     LAUNCHES += 1
     return b

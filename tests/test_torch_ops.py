@@ -297,6 +297,92 @@ def test_trsm_plain_matches_pallas(left, transpose):
     assert_close(X, X_pal, rtol=1e-4, atol=1e-5)
 
 
+TRSM_TILE = 64  # the tile edge T fixed in csrc/trsm.cu
+_trtri_tile_jit = jax.jit(chol_pallas._trtri_tile)  # one compile per shape
+
+
+def _trtri_tile_model(d):
+    """csrc/trsm.cu's trtri pass on one lower (T, T) tile, as 2 x 2 blocks
+    [[A, 0], [C, D]]: A^{-1} and D^{-1} by substitution (every column
+    right-looking at once, x_j = v_j (1 / L_jj), then v_r -= L_rj x_j for
+    r > j), then the corner -D^{-1} (C A^{-1})."""
+    def subst(a):
+        x = torch.eye(a.shape[0])
+        for j in range(a.shape[0]):
+            x[j] = x[j] * (1.0 / a[j, j])
+            x[j + 1:] -= torch.outer(a[j + 1:, j], x[j])
+        return x
+
+    h = d.shape[0] // 2
+    ai, di = subst(d[:h, :h]), subst(d[h:, h:])
+    x = torch.zeros_like(d)
+    x[:h, :h], x[h:, h:] = ai, di
+    x[h:, :h] = -(di @ (d[h:, :h] @ ai))
+    return x
+
+
+def _blocked_trsm_model(l, b, T, transpose):
+    """csrc/trsm.cu's schedule in float32 PyTorch: op(L) X = B with the
+    diagonal tiles of tril(L), identity padded past n, inverted by the
+    trtri pass; panels walked forward for L and backward for L^T, each a
+    strip update over the solved tiles in ascending m, R_p = B_p - strip,
+    then X_p = W_p R_p with W_p = op(L_pp)^{-1}."""
+    n, k = b.shape
+    nt = -(-n // T)
+    lp = torch.eye(nt * T)
+    lp[:n, :n] = torch.tril(l)
+    x = torch.zeros(nt * T, k)
+    x[:n] = b
+
+    def rows(i):
+        return slice(i * T, (i + 1) * T)
+
+    for p in (range(nt - 1, -1, -1) if transpose else range(nt)):
+        winv = _trtri_tile_model(lp[rows(p), rows(p)])
+        w = winv.T if transpose else winv
+        acc = torch.zeros(T, k)
+        if transpose:
+            for q in range(p + 1, nt):
+                acc += lp[rows(q), rows(p)].T @ x[rows(q)]
+        else:
+            for q in range(p):
+                acc += lp[rows(p), rows(q)] @ x[rows(q)]
+        x[rows(p)] = w @ (x[rows(p)] - acc)
+    return x[:n]
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("k", [1, 9, 40])
+@pytest.mark.parametrize("n", [8, 100, 128, 200, 256, 1000])
+def test_trsm_tile_schedule_model(n, k, transpose):
+    """The kernel's schedule (ragged last tile at n = 8, 100, 200, 1000;
+    L with 7.0 above its diagonal) against trsm_plain, its tile inverse
+    against chol_pallas._trtri_tile, and at n = 128, 256 the model
+    against the Pallas TRSM. rtol 1e-4, atol 1e-5 at cond 1e2, as
+    test_trsm_plain_matches_pallas: fp32 solves by different orders of
+    summation (and through inverted tiles, whose error grows with
+    cond(L_pp) <= cond(L)) sit within cond * eps of each other."""
+    L = np.linalg.cholesky(_spd(n, seed=n + k, cond=1e2)).astype(np.float32)
+    stale = torch.tensor(L + np.triu(np.full_like(L, 7.0), 1))
+    B = np.random.default_rng(k).standard_normal((n, k)).astype(np.float32)
+    X = _blocked_trsm_model(stale, torch.tensor(B), TRSM_TILE, transpose)
+    want = trsm_cuda.trsm_plain(stale, torch.tensor(B), True, transpose)
+    assert_close(X, want, rtol=1e-4, atol=1e-5)
+
+    last = (n - 1) // TRSM_TILE * TRSM_TILE  # the ragged, padded tile
+    for p0 in sorted({0, last}):
+        d = torch.eye(TRSM_TILE)
+        pb = min(TRSM_TILE, n - p0)
+        d[:pb, :pb] = torch.tril(stale[p0:p0 + pb, p0:p0 + pb])
+        assert_close(_trtri_tile_model(d),
+                     _trtri_tile_jit(jnp.asarray(d.numpy())),
+                     rtol=1e-4, atol=1e-5)
+    if n in (128, 256):
+        X_pal = trsm_pallas.trsm(jnp.asarray(L), jnp.asarray(B),
+                                 transpose=transpose, interpret=True)
+        assert_close(X, X_pal, rtol=1e-4, atol=1e-5)
+
+
 def test_trsm_vector_and_strided_in_place():
     """A vector right-hand side, and trsm_ on a strided view of a larger
     buffer (the right-side solve of the Cholesky recursion)."""
