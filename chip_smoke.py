@@ -8,13 +8,17 @@ Phases, one line of output each (or a few), failing fast with exit 1:
   0. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, TF32 off;
   1. build: nvcc compiles the kernels under cugp_tpu_torch/csrc/ (one
-     process a source, in parallel) and ptxas reports potrf's resources;
+     process a source, in parallel) and ptxas reports potrf's and the
+     TRSM kernels' resources;
   2. kernels against their plain PyTorch versions on the card, at the
      shapes of the main paths: covariance tile, potrf (the grid it takes,
      small and ragged n, in place, batches and repeats bitwise, NaN on a
-     non-PD block, a time per base-block size), TRSM and the fused
-     covariance matvec, each beside its bound and, where one exists, the
-     one PyTorch call that computes the same function;
+     non-PD block, a time per base-block size), TRSM (both routes,
+     ragged n, k across the narrow/wide threshold, both sides, a stale
+     upper triangle, an odd leading dimension, strided in place, repeats
+     and slab widths bitwise) and the fused covariance matvec, each
+     beside its bound and, where one exists, the one PyTorch call that
+     computes the same function;
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against a float64 scipy posterior, with each kernel's launch
@@ -27,9 +31,9 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      log_marginal_likelihood_iterative, launch counters read around
      them; then, on the first 16,384 rows, the iterative posterior and
      LML against the dense path.
---profile adds torch.profiler device times by kernel: 3 config-2 fit
-steps (phase 3), one Cholesky at N=32768 (phase 4) and one fit step at
-N=100,000 (phase 5).
+--profile adds torch.profiler device times by kernel: 10 TRSM calls at
+each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
+Cholesky at N=32768 (phase 4) and one fit step at N=100,000 (phase 5).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -580,8 +584,9 @@ def phase_trsm(torch, dev, results, profile=False):
 
 
 def _trsm_bound(n, k):
-    """L and B read once, X written once; n^2 k fp32 flops."""
-    return bound(4 * (n ** 2 + 2 * n * k), n ** 2 * k)
+    """L's lower triangle and B read once, X written once; n^2 k fp32
+    flops."""
+    return bound(4 * (n * (n + 1) // 2 + 2 * n * k), n ** 2 * k)
 
 
 def _posterior64(params, X, y, Xs, jitter=1e-6):

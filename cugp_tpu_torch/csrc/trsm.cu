@@ -13,35 +13,37 @@
 // inverted once (trtri pass), and every panel of the solve is a strip
 // update R_p = B_p - op(L)[p, solved] X[solved] followed by the product
 // X_p = op(L_pp)^{-1} R_p. Both steps are dense products, so no
-// per-column substitution chain is left in the solve.
+// per-column substitution chain is left in the solve. The constants
+// below (T, NARROW_MAX, the ring depths, the micro-tile) were chosen by
+// A/B runs on an H100; PERF.md has the readings.
 //
 //   trtri pass   one CTA per diagonal tile (identity padded past n, the
 //                strict upper part ignored), as 2 x 2 blocks of 32: the
 //                two diagonal blocks by substitution, a warp per column
 //                of each, pivots passed by shuffle; then the corner by
-//                two 32 x 32 products. It writes W_p = op(L_pp)^{-1} into a
-//                scratch of (ceil(n / T), T, T) floats.
+//                two 32 x 32 products. It writes W_p = op(L_pp)^{-1} into
+//                a scratch of (ceil(n / T), T, T) floats. Latency-bound
+//                (a 32-step chain), about 7 us.
 //   narrow route k <= NARROW_MAX (the alpha solves, k = 1; the
-//                preconditioner, k = 9). Bound by latency and by the
-//                bytes of L one SM can pull in (2 MB at n = 1024). One
-//                CTA per column (measured against 2, 4, 8 and 16
-//                columns a CTA: each halving of the columns was faster). No tile
-//                of L or W depends on X, so they stream through a ring
-//                of NARROW_STAGES tiles with cp.async, issued that many
-//                tiles ahead of use, across panel boundaries. Each
-//                thread owns 4 rows x 4 m of every tile and streams
-//                exactly those four 16-byte pieces into its own slots,
-//                so a tile costs a thread four cp.async, its own wait
-//                and no block barrier (two a panel remain). The panel's
-//                sums are reduced by shuffle across the T / 4 lanes of
-//                a row group.
+//                preconditioner, k = 9). Bound by how fast one SM pulls
+//                in the 2.2 MB of L's lower triangle and W (n = 1024):
+//                FMAs are few and the load latency is hidden. One CTA
+//                per column, so k columns use k SMs. No tile of L or W
+//                depends on X, so they stream through a ring of
+//                NARROW_STAGES tiles with cp.async, issued ahead of use
+//                across panel boundaries. Each thread owns 4 rows x 4 m
+//                of every tile and streams exactly those four 16-byte
+//                pieces into its own slots, so a tile costs it four
+//                cp.async and its own wait, and no block barrier (two a
+//                panel remain). The panel's sums are reduced by shuffle
+//                across the T / 4 lanes of a row group.
 //   wide route   larger k (predict, the Cholesky panel solves, Murray's
 //                backward). Bound by fp32 FMA issue. The grid runs over
-//                slabs of W in {8, 16, 32} columns, chosen from k so the
-//                slabs cover the SMs; each CTA keeps its (n, W) slab in
+//                slabs of W in {8, 16, 32} columns, the widest whose CTAs
+//                still cover the SMs; each CTA keeps its (n, W) slab in
 //                shared memory and walks the panels. Strip and diagonal
 //                products are register-tiled: each thread owns an
-//                MR x MC micro-tile of outputs fed by vector
+//                MR x MICRO_COLS micro-tile of outputs fed by vector
 //                shared-memory loads, and the next L tile's cp.async
 //                overlaps this tile's FMAs (WIDE_STAGES deep ring).
 //
@@ -77,13 +79,11 @@ constexpr int MICRO_ROWS = 4;     // wide micro-tile rows a thread, W >= 16
 constexpr int MICRO_ROWS_W8 = 2;  // the same at W = 8
 constexpr int MICRO_COLS = 2;     // wide micro-tile columns a thread
 
-// wide route micro-tile (rows x columns a thread) by slab width
 __host__ __device__ constexpr int wide_mr(int w) {
   return w >= 16 ? MICRO_ROWS : MICRO_ROWS_W8;
 }
-__host__ __device__ constexpr int wide_mc(int) { return MICRO_COLS; }
 __host__ __device__ constexpr int wide_threads(int w) {
-  return (T / wide_mr(w)) * (w / wide_mc(w));
+  return (T / wide_mr(w)) * (w / MICRO_COLS);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -132,28 +132,9 @@ __device__ __forceinline__ void st_vec(float* p, const float* v) {
   }
 }
 
-// A T x T tile (rows x cols valid, zeros past them) from src (leading
-// dimension ld) into dst (row stride LDS): cp.async where vec, else
-// scalar loads, by the threads of the block.
-__device__ void load_tile(float* dst, const float* src, long long ld,
-                          int rows, int cols, bool vec, int nthr) {
-  for (int e = threadIdx.x; e < T * T / 4; e += nthr) {
-    const int r = e / (T / 4), c = 4 * (e % (T / 4));
-    float* d = dst + r * LDS + c;
-    const float* s = src + static_cast<long long>(r) * ld + c;
-    if (vec && r < rows && c + 4 <= cols) {
-      cp_async16(d, s);
-    } else {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = (r < rows && c + j < cols) ? s[j] : 0.0f;
-      st_vec<4>(d, v);
-    }
-  }
-}
-
-// The 4 floats at (row, col) of a tile (rows x cols valid) into dst: one
-// cp.async where vec and inside, else masked scalar loads.
+// The 4 floats at (row, col) of a tile (rows x cols valid, zeros past
+// them) into dst: one cp.async where vec and inside, else masked scalar
+// loads.
 __device__ __forceinline__ void load_piece(float4* dst, const float* src,
                                            long long ld, int row, int col,
                                            int rows, int cols, bool vec) {
@@ -165,6 +146,17 @@ __device__ __forceinline__ void load_piece(float4* dst, const float* src,
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = (row < rows && col + j < cols) ? s[j] : 0.0f;
     st_vec<4>(reinterpret_cast<float*>(dst), v);
+  }
+}
+
+// A T x T tile from src (leading dimension ld) into dst (row stride
+// LDS), by the nthr threads of the block.
+__device__ void load_tile(float* dst, const float* src, long long ld,
+                          int rows, int cols, bool vec, int nthr) {
+  for (int e = threadIdx.x; e < T * T / 4; e += nthr) {
+    const int r = e / (T / 4), c = 4 * (e % (T / 4));
+    load_piece(reinterpret_cast<float4*>(dst + r * LDS + c), src, ld, r, c,
+               rows, cols, vec);
   }
 }
 
@@ -369,7 +361,7 @@ template <int W, bool TR>
 __global__ void __launch_bounds__(wide_threads(W))
 trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
                  long long rs, long long cs, int n, int k, int vec) {
-  constexpr int MR = wide_mr(W), MC = wide_mc(W), THR = wide_threads(W);
+  constexpr int MR = wide_mr(W), MC = MICRO_COLS, THR = wide_threads(W);
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);
   const int nt = (n + T - 1) / T, np = nt * T;
