@@ -162,8 +162,9 @@ __device__ void load_tile(float* dst, const float* src, long long ld,
 
 // The tiles the solve uses, in order: panel by panel (forward for L,
 // backward for L^T), first the t strip tiles of the t-th panel (in
-// ascending m), then its W_p. issue() hands the next one to
-// load(src, ld, rows, cols, vec, strip) and commits one cp.async group.
+// ascending m), then its W_p. issue(load, buf) hands the next one to
+// load(buf, src, ld, rows, cols, vec, strip), buf being the ring slot,
+// and commits one cp.async group.
 template <bool TR>
 struct Stream {
   const float* l;
@@ -174,17 +175,17 @@ struct Stream {
   int t = 0, q = 0;  // the next stage to issue
 
   template <typename Load>
-  __device__ void issue(Load load) {
+  __device__ void issue(Load load, int buf) {
     if (t < nt) {
       const int p = TR ? nt - 1 - t : t;
       if (q < t) {
         // forward: L[p, q]; transpose: L[p + 1 + q, p], read as stored
         const int i0 = (TR ? p + 1 + q : p) * T, j0 = (TR ? p : q) * T;
-        load(l + static_cast<long long>(i0) * ldl + j0, ldl, n - i0, n - j0,
-             vec, true);
+        load(buf, l + static_cast<long long>(i0) * ldl + j0, ldl, n - i0,
+             n - j0, vec, true);
       } else {
-        load(winv + static_cast<long long>(p) * T * T, static_cast<long long>(T),
-             T, T, true, false);
+        load(buf, winv + static_cast<long long>(p) * T * T,
+             static_cast<long long>(T), T, T, true, false);
       }
       if (++q > t) { ++t; q = 0; }
     }
@@ -276,9 +277,8 @@ trsm_narrow_kernel(const float* l, long long ldl, const float* winv,
   for (int i = tid; i < np; i += NT) xs[i] = i < n ? b[i * rs] : 0.0f;
 
   Stream<TR> st{l, ldl, winv, n, nt, vec != 0};
-  int buf = 0;
-  auto load = [&](const float* src, long long ld, int rows, int cols,
-                  bool v, bool strip) {
+  auto load = [=](int buf, const float* src, long long ld, int rows,
+                  int cols, bool v, bool strip) {
     float4* slot = ring + 4 * buf * NT + tid;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -288,7 +288,7 @@ trsm_narrow_kernel(const float* l, long long ldl, const float* winv,
         load_piece(slot + j * NT, src, ld, r0 + j, 4 * mg, rows, cols, v);
     }
   };
-  for (; buf < NARROW_STAGES - 1; ++buf) st.issue(load);
+  for (int buf = 0; buf < NARROW_STAGES - 1; ++buf) st.issue(load, buf);
   __syncthreads();  // x
 
   int s = 0;
@@ -302,8 +302,7 @@ trsm_narrow_kernel(const float* l, long long ldl, const float* winv,
       for (int j = 0; j < 4; ++j)
         ld_vec<4>(reinterpret_cast<const float*>(
                       ring + (4 * (s % NARROW_STAGES) + j) * NT + tid), a[j]);
-      buf = (s + NARROW_STAGES - 1) % NARROW_STAGES;
-      st.issue(load);
+      st.issue(load, (s + NARROW_STAGES - 1) % NARROW_STAGES);
       if (q < t) {
         // strip: acc += op(L)[p rows, tile m] x[tile m]
         if (!TR) {
@@ -377,10 +376,11 @@ trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
   }
 
   Stream<TR> st{l, ldl, winv, n, nt, vec != 0};
-  int buf = 0;
-  auto load = [&](const float* src, long long ld, int rows, int cols, bool v,
-                  bool) { load_tile(ring + buf * STAGE, src, ld, rows, cols, v, THR); };
-  for (; buf < WIDE_STAGES - 1; ++buf) st.issue(load);
+  auto load = [=](int buf, const float* src, long long ld, int rows,
+                  int cols, bool v, bool) {
+    load_tile(ring + buf * STAGE, src, ld, rows, cols, v, THR);
+  };
+  for (int buf = 0; buf < WIDE_STAGES - 1; ++buf) st.issue(load, buf);
 
   const int cc = MC * (tid % (W / MC)), r0 = MR * (tid / (W / MC));
   int s = 0;
@@ -394,8 +394,7 @@ trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
     for (int q = 0; q <= t; ++q, ++s) {
       cp_async_wait<WIDE_STAGES - 2>();
       __syncthreads();
-      buf = (s + WIDE_STAGES - 1) % WIDE_STAGES;
-      st.issue(load);
+      st.issue(load, (s + WIDE_STAGES - 1) % WIDE_STAGES);
       const float* tile = ring + (s % WIDE_STAGES) * STAGE;
       if (q < t) {
         const int m0 = (TR ? p + 1 + q : q) * T;
