@@ -146,4 +146,4 @@ def stream_of(t):
     """PyTorch's current CUDA stream on t's device, as a pointer."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

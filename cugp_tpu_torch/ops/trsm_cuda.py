@@ -71,11 +71,12 @@ def trsm_(l, b, left=True, transpose=False):
     n = l.shape[-1]
     if l.shape != (n, n) or b.ndim != 2 or b.shape[0] != n:
         raise ValueError(f"trsm_: L {tuple(l.shape)}, B {tuple(b.shape)}")
-    if b.device.type != "cuda":
+    if not b.is_cuda:
         b.copy_(trsm_plain(l, b, True, transpose))
         return b
+    dev = b.get_device()
     if (l.dtype != torch.float32 or b.dtype != torch.float32
-            or l.device != b.device or n > MAX_N or l.stride(-1) != 1):
+            or l.get_device() != dev or n > MAX_N or l.stride(-1) != 1):
         raise ValueError(f"trsm_ kernel takes float32 L with n <= {MAX_N} "
                          f"and unit column stride on B's device, got L "
                          f"{l.dtype} {tuple(l.shape)} {l.stride()} on "
@@ -84,11 +85,14 @@ def trsm_(l, b, left=True, transpose=False):
     # the inverted diagonal tiles (256 KB at n = 1024)
     scratch = torch.empty(_scratch_floats(n), dtype=torch.float32,
                           device=b.device)
-    with torch.cuda.device(b.device):
-        err = lib.cugp_trsm(l.data_ptr(), l.stride(0), b.data_ptr(),
-                            b.stride(0), b.stride(1), n, b.shape[1],
-                            int(transpose), scratch.data_ptr(),
-                            _build.stream_of(b))
+    args = (l.data_ptr(), l.stride(0), b.data_ptr(), b.stride(0),
+            b.stride(1), n, b.shape[1], int(transpose), scratch.data_ptr(),
+            _build.stream_of(b))
+    if dev == torch.cuda.current_device():
+        err = lib.cugp_trsm(*args)
+    else:
+        with torch.cuda.device(b.device):
+            err = lib.cugp_trsm(*args)
     _build.check(err, "trsm")
     LAUNCHES += 1
     return b
