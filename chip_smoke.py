@@ -8,17 +8,20 @@ Phases, one line of output each (or a few), failing fast with exit 1:
   0. device: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, TF32 off;
   1. build: nvcc compiles the kernels under cugp_tpu_torch/csrc/ (one
-     process a source, in parallel) and ptxas reports potrf's and the
-     TRSM kernels' resources;
+     process a source, in parallel) and ptxas reports the registers and
+     spills of potrf's, the TRSM and the matvec kernels, a line each;
   2. kernels against their plain PyTorch versions on the card, at the
      shapes of the main paths: covariance tile, potrf (the grid it takes,
      small and ragged n, in place, batches and repeats bitwise, NaN on a
      non-PD block, a time per base-block size), TRSM (both routes,
      ragged n, k across the narrow/wide threshold, both sides, a stale
      upper triangle, an odd leading dimension, strided in place, repeats
-     and slab widths bitwise) and the fused covariance matvec, each
-     beside its bound and, where one exists, the one PyTorch call that
-     computes the same function;
+     and slab widths bitwise) and the fused covariance matvec (all kinds
+     at d = 4 and 40, r across the route and RC boundaries, strided V,
+     repeats bitwise, the narrow route's columns bitwise independent of
+     r; timed by route at N=100,000, with the linear kind beside rbf),
+     each beside its bound and, where one exists, the one PyTorch call
+     that computes the same function;
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against a float64 scipy posterior, with each kernel's launch
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -129,15 +133,40 @@ def phase_build():
         library=so.name)
     print_ptxas("potrf.cu")
     print_ptxas("trsm.cu")
+    print_ptxas("cov_matvec.cu")
+
+
+def kernel_name(mangled):
+    """'_ZN<namespace>17cov_matvec_narrowILi0ELi9EEEv...' ->
+    'cov_matvec_narrow<0,9>': the nested name's last part, then its
+    integer and bool template arguments."""
+    pos, name = 3 if mangled.startswith("_ZN") else 0, mangled
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        k = int(m.group())
+        name = mangled[pos + m.end():pos + m.end() + k]
+        pos += m.end() + k
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+    return name
 
 
 def print_ptxas(source):
-    """ptxas's registers / shared memory / spills for one source's kernels."""
+    """ptxas's registers and spills for one source's kernels, a line each."""
     from cugp_tpu_torch.ops import _build
 
-    for line in _build.ptxas_report().get(source, "").splitlines():
-        if any(k in line for k in ("entry function", "Used", "spill")):
-            say("ptxas", source=source, info=repr(line.strip()))
+    report = _build.ptxas_report().get(source, "")
+    for block in report.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        say("ptxas", source=source, kernel=kernel_name(block.split("'")[0]),
+            registers=regs.group(1) if regs else "?",
+            spill_stores=spill.group(1) if spill else "?",
+            spill_loads=spill.group(2) if spill else "?")
 
 
 def _close(got, want, rtol, atol):
@@ -226,6 +255,10 @@ def _matvec_bound(n, d, r):
     return bound(4 * (n * d + 2 * n * r), n * n * (2 * d + 3 + 2 * r))
 
 
+MATVEC_R = (1, 4, 9, 12, 16, 17, 32, 33, 128, 129)  # route/RC boundaries
+MATVEC_TIMED_R = (1, 9, 17, 128)
+
+
 def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
     from cugp_tpu_torch.ops import cov_matvec_cuda as cm
     from cugp_tpu_torch.ops import kernels
@@ -233,8 +266,12 @@ def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
     rng = np.random.default_rng(4)
     rel_bar = 1e-4
     worst = worst_rel = 0.0
-    V = torch.as_tensor(rng.standard_normal((n, 129)), dtype=torch.float32,
+    V = torch.as_tensor(rng.standard_normal((n, 130)), dtype=torch.float32,
                         device=dev)
+
+    def v_of(r):
+        """Strided column slices of one buffer, as CG passes sol[:, 1:]."""
+        return V[:, :1] if r == 1 else V[:, 1:1 + r]
 
     def matern12_slack(xs, sf2, v):
         """|K error| near coincident points is up to sf2 sqrt(8 eps
@@ -263,13 +300,14 @@ def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
             extra = {"rq": 0.7, "linear": 0.3}.get(base, 1.0)
             scal = torch.tensor([1.3, 0.1, extra], dtype=torch.float32,
                                 device=dev)
-            # strided column slices of one buffer, as CG passes sol[:, 1:]
-            for r, v in ((1, V[:, :1]), (9, V[:, 1:10]), (128, V[:, 1:])):
+            outs = {}
+            for r in MATVEC_R:
+                v = v_of(r)
                 got = cm.cov_matvec(xs, v, scal, base, n)
                 again = cm.cov_matvec(xs, v, scal, base, n)
                 want = cm.cov_matvec_plain(xs, v, scal, base, n)
                 torch.cuda.synchronize()
-                tag = f"{kind} d={d} r={r}"
+                tag = f"{kind} d={d} r={r} ({cm.route(r)})"
                 if got.shape != (n, r) or not torch.isfinite(got).all():
                     fail(f"cov_matvec {tag}: shape {tuple(got.shape)} or "
                          "non-finite")
@@ -286,9 +324,23 @@ def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
                          f" = {rel_bar * scale:.3e}")
                 worst = max(worst, float(err.max()))
                 worst_rel = max(worst_rel, float(err.max()) / scale)
-                errs.append(f"{float(err.max()) / scale:.2e}")
-        say("cov_matvec", kind=kind, n=n, rel_err_d4_r1_9_128_d40_r1_9_128=
-            ",".join(errs), bitwise_repeat=True)
+                errs.append(f"{float(err.max()) / scale:.1e}")
+                outs[r] = got
+            # narrow route: a column's output does not depend on r (the
+            # same sums in the same order at every RC and rows a lane)
+            lead = outs[32]
+            for r in (4, 9, 12, 16, 17):
+                if not torch.equal(outs[r], lead[:, :r]):
+                    fail(f"cov_matvec {kind} d={d}: r={r} differs from the "
+                         "leading columns of r=32")
+            if not torch.equal(cm.cov_matvec(xs, V[:, 1:2], scal, base, n),
+                               lead[:, :1]):
+                fail(f"cov_matvec {kind} d={d}: r=1 differs from the first "
+                     "column of r=32")
+        say("cov_matvec", kind=kind, n=n,
+            r=",".join(map(str, MATVEC_R)), rel_err_d4_then_d40=
+            ",".join(errs), bitwise_repeat=True,
+            narrow_columns_independent_of_r=True)
 
     # time at the main path's width: N = 100,000, d = 4, rbf
     n, d = n_time, 4
@@ -296,7 +348,7 @@ def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
                         dtype=torch.float32, device=dev)
     scal = torch.tensor([0.3, 0.3, 1.0], dtype=torch.float32, device=dev)
     out = {}
-    for r in (9, 128):
+    for r in MATVEC_TIMED_R:
         v = torch.as_tensor(rng.standard_normal((n, r)), dtype=torch.float32,
                             device=dev)
         got = cm.cov_matvec(X, v, scal, "rbf", n)
@@ -309,21 +361,36 @@ def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
         del got, want
         ms = cuda_ms(lambda: cm.cov_matvec(X, v, scal, "rbf", n), iters=5,
                      warmup=1)
-        plain_ms = cuda_ms(lambda: cm.cov_matvec_plain(X, v, scal, "rbf", n),
-                           iters=2, warmup=1)
         b_ms, b_by = _matvec_bound(n, d, r)
-        say("cov_matvec", shape=f"n={n} d={d} r={r} rbf",
-            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        row = {"route": cm.route(r), "ms": ms, "bound_ms": b_ms,
+               "bound_by": b_by, "rel_err": err / scale}
+        if r in (9, 128):
+            row["plain_ms"] = cuda_ms(
+                lambda: cm.cov_matvec_plain(X, v, scal, "rbf", n), iters=2,
+                warmup=1)
+            # no exponent: splits the epilogue's cost from the FMAs
+            row["linear_ms"] = cuda_ms(
+                lambda: cm.cov_matvec(X, v, scal, "linear", n), iters=5,
+                warmup=1)
+            say("cov_matvec", split=f"n={n} d={d} r={r}", route=row["route"],
+                rbf_ms=f"{ms:.4f}", linear_ms=f"{row['linear_ms']:.4f}",
+                exponent_share=f"{1.0 - row['linear_ms'] / ms:.4f}")
+        say("cov_matvec", shape=f"n={n} d={d} r={r} rbf", route=row["route"],
+            kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{row['plain_ms']:.4f}" if "plain_ms" in row else "-",
             bound_ms=f"{b_ms:.4f}", bound_by=b_by,
             rel_err=f"{err / scale:.3e}")
-        out[r] = (ms, plain_ms, b_ms, b_by, err)
-    ms, plain_ms, b_ms, b_by, _ = out[9]
+        out[r] = row
+    r9, r128 = out[9], out[128]
     results["cov_matvec"] = {
-        "max_abs_err": worst, "max_rel_err": worst_rel, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": f"n={n} d={d} r=9",
-        "r128_ms": out[128][0], "r128_plain_ms": out[128][1],
-        "r128_bound_ms": out[128][2]}
+        "max_abs_err": worst, "max_rel_err": worst_rel, "ms": r9["ms"],
+        "plain_ms": r9["plain_ms"], "bound_ms": r9["bound_ms"],
+        "bound_by": r9["bound_by"], "library_ms": None,
+        "shape": f"n={n} d={d} r=9", "routes": {
+            f"r={r}": row["route"] for r, row in out.items()},
+        "r128_ms": r128["ms"], "r128_plain_ms": r128["plain_ms"],
+        "r128_bound_ms": r128["bound_ms"],
+        "by_r": {f"r={r}": row for r, row in out.items()}}
 
 
 def _spd(torch, n, dev, seed):
@@ -889,7 +956,7 @@ def profile_device(torch, tag, fn):
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     say(tag, wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
         idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows))
-    ours = ("cov_matvec_kernel", "cov_kernel", "potrf_kernel", "trsm_trtri",
+    ours = ("cov_matvec", "cov_kernel", "potrf_kernel", "trsm_trtri",
             "trsm_narrow", "trsm_wide")
     for i, e in enumerate(rows):
         if i < 12 or any(k in e.key for k in ours):

@@ -181,11 +181,12 @@ class GP:
         self._precond_cache = None
         return info
 
-    def _iterative_precond(self, precond_rank, params):
-        """(Lk, Lg, s2) pivoted-Cholesky factors for the iterative entry
-        points, cached by (params, X, rank) object identity. "auto": rank
-        128 at n >= 8192, none below (small problems converge in few CG
-        iterations anyway)."""
+    def _iterative_precond(self, precond_rank, params, key=None):
+        """(Lk, Lg, s2) pivoted-Cholesky factors of `params` for the
+        iterative entry points, cached by (key, X, rank) object identity;
+        key is the caller's own dict (`params` by default), as the JAX GP
+        caches the dict it was handed. "auto": rank 128 at n >= 8192, none
+        below (small problems converge in few CG iterations anyway)."""
         from cugp_tpu_torch.inference import iterative
 
         n = self.X.shape[0]
@@ -193,14 +194,15 @@ class GP:
             precond_rank = 128 if n >= 8192 else 0
         if not precond_rank:
             return None
+        key = params if key is None else key
         cached = getattr(self, "_precond_cache", None)
         if cached is not None:
-            c_params, c_X, c_rank, fac = cached
-            if c_params is params and c_X is self.X and c_rank == precond_rank:
+            c_key, c_X, c_rank, fac = cached
+            if c_key is key and c_X is self.X and c_rank == precond_rank:
                 return fac
         fac = iterative.precond_factors(params, self.X, precond_rank,
                                         kind=self.kind, jitter=self.jitter)
-        self._precond_cache = (params, self.X, precond_rank, fac)
+        self._precond_cache = (key, self.X, precond_rank, fac)
         return fac
 
     def log_marginal_likelihood_iterative(self, params=None, *, block=4096,
@@ -217,7 +219,8 @@ class GP:
 
         map_opt.check_iterative_schedule(segment_iters)
         p = self._params(params) if params is not None else self.params
-        pre = self._iterative_precond(precond_rank, p)
+        # keyed on the caller's dict: p is a new dict on every call
+        pre = self._iterative_precond(precond_rank, p, key=params)
         return self._out_lml(iterative.lml_iterative(
             p, self.X, self.y, Z=probes, kind=self.kind, jitter=self.jitter,
             block=block, num_probes=num_probes, num_steps=num_steps,

@@ -43,8 +43,14 @@ _SIGNATURES = {
     "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p, _p],
     # n: floats of the scratch cugp_trsm takes for an (n, n) L
     "cugp_trsm_scratch": [_i],
-    # x, v, scal, out, n, d, r, v_row_stride, v_col_stride, ldo, kind, stream
-    "cugp_cov_matvec": [_p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i, _p],
+    # x, v, scal, out, scratch, n, d, r, v_row_stride, v_col_stride, ldo,
+    # kind, stream
+    "cugp_cov_matvec": [_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i,
+                        _p],
+    # n, d, r: floats of the scratch cugp_cov_matvec takes (-1: too many)
+    "cugp_cov_matvec_scratch": [_i, _i, _i],
+    # r: V columns a CTA holds (<= 32: the narrow route; 128: the wide one)
+    "cugp_cov_matvec_width": [_i],
 }
 
 _lib = None

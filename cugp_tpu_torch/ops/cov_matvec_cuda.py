@@ -2,15 +2,26 @@
 
 Replaces ``cugp_tpu/ops/cov_pallas.py::_cov_matvec_kernel``: (K(X, X) +
 diag_add I) V with K built tile by tile on chip and never written. On the
-H100 it is bound by fp32 operations (2d + a few + 2r flops per entry of
-K); the kernel holds each tile in registers, contracts it with a
-shared-memory V tile, and reduces the warps' partial sums in a fixed order
-(no atomics: bitwise reproducible). Any d (32-feature chunks), any r
-(32-wide V chunks over the grid), n and r unpadded.
+H100 it is bound by fp32 instruction issue (the cross term, the epilogue
+and r contraction FMAs for each of the n^2 entries of K), not by bytes.
+A call is two launches: a pre-pass writes the padded rows (in log2 units
+for rbf), their half squared norms and a contiguous zero-padded copy of V
+into a scratch this wrapper allocates; then one of two routes. For r <=
+32 (CG and Lanczos) the narrow route keeps K in registers and spends per
+entry d cross FMAs, two subtractions, one ex2 and RC contraction FMAs (RC
+exact at r = 1, 9, 16, 17, else a multiple of 4), with a cp.async ring
+over the column tiles; what bounds it is the issue of those instructions
+plus ~6 an entry of loads, staging and addresses. For r > 32 (the
+variance solve) the wide route builds each K entry once into shared
+memory and contracts it with 128 columns of V in a register-tiled
+product; what bounds it is the fp32 FMA pipe. Sums run in a fixed order (no
+atomics: bitwise reproducible; in the narrow route a column's output does
+not depend on r). Any d, n and r, V with any strides.
 
 ``cov_matvec`` launches the kernel for CUDA tensors and runs
 ``cov_matvec_plain`` (row blocks of ``cov_cuda.cov_tile_plain`` times V)
-for CPU tensors. The kernel has no backward: asking it for a gradient
+for CPU tensors; ``LAUNCHES`` counts its calls that launched (a pre-pass
+and a route each). The kernel has no backward: asking it for a gradient
 raises on either device. The matrix-free tier differentiates through the
 blocked route (``inference.iterative.make_matvec(method="blocked")``),
 as the JAX package does.
@@ -42,6 +53,13 @@ def cov_matvec_plain(xs, v, scal, kind, n, block=4096):
     return torch.cat(out) + scal[1] * v
 
 
+def route(r):
+    """The kernel's route for r columns: "narrow RC=<V columns a CTA
+    holds>" or "wide" (builds the library if needed)."""
+    width = _build.lib().cugp_cov_matvec_width(r)
+    return f"narrow RC={width}" if width <= 32 else "wide"
+
+
 def cov_matvec(xs, v, scal, kind, n):
     """(K(xs, xs) + scal[1] I) @ v over the first n rows: the kernel on
     CUDA, the plain version on CPU. v is (>= n, r) with any strides."""
@@ -65,14 +83,21 @@ def cov_matvec(xs, v, scal, kind, n):
                          f"v {tuple(v.shape)}, scal {tuple(scal.shape)}, "
                          f"n={n}")
     xs, scal = xs.contiguous(), scal.contiguous()
-    r = v.shape[1]
+    d, r = xs.shape[1], v.shape[1]
     out = torch.empty((n, r), dtype=torch.float32, device=xs.device)
     lib = _build.lib()
+    floats = lib.cugp_cov_matvec_scratch(n, d, r)
+    if floats < 0:
+        raise ValueError(f"cov_matvec: n={n}, d={d}, r={r} needs a scratch "
+                         "past 2^31 floats")
+    # padded rows, half-norms and V: 6.8 MB at n = 100k, d = 4, r = 9
+    scratch = torch.empty(floats, dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         err = lib.cugp_cov_matvec(xs.data_ptr(), v.data_ptr(),
-                                  scal.data_ptr(), out.data_ptr(), n,
-                                  xs.shape[1], r, v.stride(0), v.stride(1),
-                                  out.stride(0), cov_cuda.KIND_CODES[kind],
+                                  scal.data_ptr(), out.data_ptr(),
+                                  scratch.data_ptr(), n, d, r, v.stride(0),
+                                  v.stride(1), out.stride(0),
+                                  cov_cuda.KIND_CODES[kind],
                                   _build.stream_of(xs))
     _build.check(err, "cov_matvec")
     LAUNCHES += 1

@@ -119,6 +119,68 @@ def test_train_cov_matvec_matches_pallas(kind, r):
     assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
+def matvec_route_model(xs, v, scal, n):
+    """csrc/cov_matvec.cu's rbf arithmetic in fp32 torch ops.
+
+    The pre-pass: rows times sqrt(log2 e) and their half squared norms h,
+    summed in the cross term's order (so the diagonal exponent is exactly
+    0). Each entry is K / sf2 = 2^((cross - h_i) - h_j); sf2 and diag_add
+    are applied once per output. The sums run in the route's order:
+    narrow (r <= 32), each of the 8 warps adds its 8 columns of every
+    64-column tile, tile by tile, then the warps' partials are added in
+    warp order; wide, the columns in order.
+    """
+    a = xs[:n] * 1.2011224087864498
+    cross = torch.zeros(n, n)
+    for k in range(a.shape[1]):
+        cross = cross + a[:, k:k + 1] * a[None, :, k]
+    h = 0.5 * torch.diagonal(cross)
+    e = (cross - h[:, None]) - h[None, :]
+    assert bool((torch.diagonal(e) == 0).all())
+    k2 = torch.exp2(e)
+    v = v[:n]
+    if v.shape[1] <= 32:
+        parts = torch.zeros(8, n, v.shape[1])
+        for j in range(n):
+            w = j % 64 // 8
+            parts[w] = parts[w] + k2[:, j:j + 1] * v[j]
+        s = parts[0]
+        for w in range(1, 8):
+            s = s + parts[w]
+    else:
+        s = torch.zeros(n, v.shape[1])
+        for j in range(n):
+            s = s + k2[:, j:j + 1] * v[j]
+    return scal[0] * s + scal[1] * v
+
+
+@pytest.mark.parametrize("r", [9, 33])
+def test_cov_matvec_route_model(r):
+    """The kernel's rbf arithmetic (log2-unit rows, exp2 of the half-norm
+    exponent, hoisted norms, sf2 per output, the route's summation order)
+    against the Pallas kernel in interpret mode and cov_matvec_plain:
+    n=300 (ragged against every tile), d=3, r = 9 (narrow) and 33
+    (wide), rtol = atol = 1e-4."""
+    P = np_params("rbf", 3, seed=9)
+    X = inputs(300, 3, seed=10)
+    V = np.random.default_rng(11).standard_normal((300, r)).astype(
+        np.float32)
+    p = tp(P)
+    xs = t(X) / torch.exp(p["log_lengthscale"])
+    sf2 = torch.exp(p["log_signal_var"])
+    scal = torch.stack([sf2, torch.exp(p["log_noise_var"]) + 1e-6 * sf2,
+                        torch.ones(())])
+    got = matvec_route_model(xs, t(V), scal, 300).numpy()
+    want_pallas = np.asarray(cov_pallas.train_cov_matvec_pallas(
+        P, jnp.asarray(X), jnp.asarray(V), kind="rbf", jitter=1e-6))
+    want_plain = cov_matvec_cuda.cov_matvec_plain(xs, t(V), scal, "rbf",
+                                                  300).numpy()
+    for want in (want_pallas, want_plain):
+        assert got.shape == want.shape == (300, r)
+        err = np.abs(got - want)
+        assert (err <= 1e-4 + 1e-4 * np.abs(want)).all(), err.max()
+
+
 @pytest.mark.parametrize("kind", ["rbf", "matern32", "rq", "linear"])
 def test_matvec_wide_d_matches_blocked_jax(kind):
     """d=40, past the Pallas kernel's d <= 32: the port's fused route
@@ -431,6 +493,34 @@ def test_gp_iterative_entry_points_match_jax(problem):
         np.testing.assert_allclose(p_t[k], np.asarray(v), atol=1e-3)
     pre = gp_t._iterative_precond(8, gp_t.params)
     assert gp_t._iterative_precond(8, gp_t.params) is pre  # cached
+
+
+def test_precond_cache_keyed_on_the_callers_dict(problem, monkeypatch):
+    """log_marginal_likelihood_iterative with the same params dict three
+    times builds the rank-8 preconditioner once, as the JAX GP does
+    (cugp_tpu/api.py:351-355); the LML equals that of a fresh factor on
+    every call within 1e-6, and another dict rebuilds the factor."""
+    X, y, P = problem
+    gp = cugp_tpu_torch.GP(kind="rbf", device="cpu").condition(X, y)
+    real, builds = ti.precond_factors, []
+
+    def counted(*args, **kw):
+        builds.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ti, "precond_factors", counted)
+    Z = t(rademacher(jax.random.key(1), 256, 8))
+    lmls = [float(gp.log_marginal_likelihood_iterative(P, probes=Z,
+                                                       precond_rank=8))
+            for _ in range(3)]
+    assert len(builds) == 1
+    p = gp._params(P)
+    want = float(ti.lml_iterative(p, gp.X, gp.y, Z=t(np.asarray(Z)),
+                                  jitter=gp.jitter,
+                                  precond=real(p, gp.X, 8)))
+    assert max(abs(v - want) for v in lmls) <= 1e-6
+    gp.log_marginal_likelihood_iterative(dict(P), probes=Z, precond_rank=8)
+    assert len(builds) == 2
 
 
 def test_unported_arguments_raise(problem):
