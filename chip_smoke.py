@@ -9,9 +9,14 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      versions, TF32 off;
   1. build: nvcc compiles the kernels under cugp_tpu_torch/csrc/ (one
      process a source, in parallel) and ptxas reports the registers and
-     spills of potrf's, the TRSM and the matvec kernels, a line each;
+     spills of every kernel, a line each;
   2. kernels against their plain PyTorch versions on the card, at the
-     shapes of the main paths: covariance tile, potrf (the grid it takes,
+     shapes of the main paths: covariance tile (all kinds, square and
+     cross, ragged 1000x777, d = 1, 4, 8, 40, repeats and both store
+     routes bitwise, the rbf diagonal exactly sf2 + diag_add, a row block
+     built alone bitwise equal to the same rows of a larger build; timed
+     at the four main-path shapes beside fill_ms, out.fill_(1.0) on an
+     output of the same size), potrf (the grid it takes,
      small and ragged n, in place, batches and repeats bitwise, NaN on a
      non-PD block, a time per base-block size), TRSM (both routes,
      ragged n, k across the narrow/wide threshold, both sides, a stale
@@ -131,6 +136,7 @@ def phase_build():
     _build.lib()
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         library=so.name)
+    print_ptxas("cov.cu")
     print_ptxas("potrf.cu")
     print_ptxas("trsm.cu")
     print_ptxas("cov_matvec.cu")
@@ -175,6 +181,19 @@ def _close(got, want, rtol, atol):
     return ok, float(err.max()), float(err.max() / want.abs().max())
 
 
+COV_KINDS = ("rbf", "matern12", "matern32", "matern52", "rq", "linear",
+             "periodic")
+# (m, n, d, square) of the main paths' builds: config 2's LML, the north
+# star, the matrix-free AD sweep's 4096-row blocks, K(X, X*) of predict
+COV_TIMED = ((8000, 8000, 4, True), (32768, 32768, 8, True),
+             (4096, 100_000, 4, False), (100_000, 128, 4, False))
+
+
+def _cov_bound(m, n, d):
+    """X1 and X2 read once, K written once; 2d + 3 flops an entry."""
+    return bound(4 * (m * d + n * d + m * n), m * n * (2 * d + 3))
+
+
 def phase_cov(torch, dev, results):
     from cugp_tpu_torch.ops import cov_cuda, kernels
 
@@ -187,14 +206,42 @@ def phase_cov(torch, dev, results):
         return torch.tensor([1.3, diag_add, extra], dtype=torch.float32,
                             device=dev)
 
+    def uniform(rows, d, scale=1.0):
+        return torch.as_tensor(rng.uniform(-2, 2, (rows, d)) * scale,
+                               dtype=torch.float32, device=dev)
+
+    def view(kind, *xs):
+        """The base kind and the inputs it sees (periodic: the rbf view)."""
+        if kind != "periodic":
+            return (kind, *xs)
+        d = xs[0].shape[1]
+        p = {"log_lengthscale": torch.zeros(d, device=dev),
+             "log_period": torch.full((d,), 0.5, device=dev)}
+        _, *vs = kernels.periodic_rbf_view(p, *xs)
+        return ("rbf", *vs)
+
     def check(tag, xs1, xs2, kind, square, n1, n2, diag_add):
+        """The kernel against the plain version, a repeat bitwise, and
+        the other store route bitwise (an output of leading dimension
+        n + 1 takes the 4-byte route)."""
         nonlocal worst
         s = scal(diag_add, kind)
         got = cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2)
         want = cov_cuda.cov_tile_plain(xs1, xs2, s, kind, square, n1, n2)
+        again = cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2)
+        m, n = got.shape
+        other = torch.empty(m, n + 1, device=dev)[:, :n]
+        cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2, out=other)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"cov {tag}: shape {tuple(got.shape)} or non-finite")
+        if not torch.equal(got, again):
+            fail(f"cov {tag}: two launches differ")
+        routes = (cov_cuda.route(got.stride(0), got.data_ptr()),
+                  cov_cuda.route(other.stride(0), other.data_ptr()))
+        if routes[1] != "4-byte" or not torch.equal(got, other):
+            fail(f"cov {tag}: the {routes[0]} and {routes[1]} store "
+                 "routes differ")
         tol = atol
         if kind == "matern12":
             # exp(-r) has slope -1 at r = 0, and r = sqrt(d2) turns the
@@ -210,42 +257,117 @@ def phase_cov(torch, dev, results):
         worst = max(worst, err)
         if not ok:
             fail(f"cov {tag}: max abs err {err:.3e} over rtol=atol={rtol}")
-        return f"{err:.3e}/{rel:.3e}"
+        return f"{err:.3e}/{rel:.3e}", routes[0]
 
-    X = torch.as_tensor(rng.uniform(-2, 2, (8000, 4)), dtype=torch.float32,
-                        device=dev)
-    Xc = torch.as_tensor(rng.uniform(-2, 2, (2000, 4)), dtype=torch.float32,
-                         device=dev)
-    X40 = torch.as_tensor(rng.uniform(-2, 2, (2000, 40)),
-                          dtype=torch.float32, device=dev) / 4.0
-    for kind in ("rbf", "matern12", "matern32", "matern52", "rq", "linear",
-                 "periodic"):
-        if kind == "periodic":
-            p = {"log_lengthscale": torch.zeros(4, device=dev),
-                 "log_period": torch.full((4,), 0.5, device=dev)}
-            _, xs, xc = kernels.periodic_rbf_view(p, X, Xc)
-            base = "rbf"
-        else:
-            xs, xc, base = X, Xc, kind
-        e_sq = check(f"{kind} square 8000", xs, xs, base, True, 7900, 7900,
-                     0.1)
-        e_x = check(f"{kind} cross 8000x2000", xs, xc, base, False, 7950,
-                    2000, 0.0)
-        e_40 = check(f"{kind} square 2000 d=40", X40, X40, base, True, 2000,
-                     2000, 0.1)
+    X = uniform(8000, 4)
+    Xc = uniform(2000, 4)
+    X40 = uniform(2000, 40, 0.25)
+    X1, X8 = uniform(2000, 1), uniform(2000, 8, 0.5)
+    Xr, Xr2 = uniform(1000, 4), uniform(777, 4)
+    for kind in COV_KINDS:
+        base, xs, xc = view(kind, X, Xc)
+        e_sq, r_sq = check(f"{kind} square 8000", xs, xs, base, True, 7900,
+                           7900, 0.1)
+        e_x, r_x = check(f"{kind} cross 8000x2000", xs, xc, base, False,
+                         7950, 2000, 0.0)
+        errs = []
+        for d, Xd in ((1, X1), (8, X8), (40, X40)):  # periodic: rbf here
+            errs.append(check(f"{kind} square 2000 d={d}", Xd, Xd, base,
+                              True, 1990, 1990, 0.1)[0])
+        base, xr, xr2 = view(kind, Xr, Xr2)
+        e_r, r_r = check(f"{kind} cross 1000x777", xr, xr2, base, False,
+                         1000, 777, 0.0)
+        if r_r != "4-byte":
+            fail(f"cov {kind} cross 1000x777: took the {r_r} route")
         say("cov", kind=kind, abs_rel_err_square=e_sq, abs_rel_err_cross=e_x,
-            abs_rel_err_d40=e_40)
+            abs_rel_err_d1_d8_d40=",".join(errs),
+            abs_rel_err_cross_1000x777=e_r,
+            routes=f"{r_sq},{r_x},{r_r}", repeat_and_routes_bitwise=True)
+
+    # the rbf diagonal is sf2 + diag_add exactly (exponent 0), and rows
+    # [4096, 8192) of a 10,000-row build are those rows built alone, as
+    # a square build's rows are the cross build of their block (the AD
+    # sweep's blocks against the dense K)
     s = scal(0.1, "rbf")
-    ms = cuda_ms(lambda: cov_cuda.cov_tile(X, X, s, "rbf", True, 8000,
-                                           8000))
-    plain_ms = cuda_ms(lambda: cov_cuda.cov_tile_plain(X, X, s, "rbf", True,
-                                                       8000, 8000))
-    say("cov", shape="8000x8000 d=4 rbf", kernel_ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", max_abs_err=f"{worst:.3e}")
-    b_ms, b_by = bound(4 * (2 * 8000 * 4 + 8000 ** 2),
-                       8000 ** 2 * (2 * 4 + 3))
-    results["cov"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    K = cov_cuda.cov_tile(X, X, s, "rbf", True, 7900, 7900)
+    if not torch.equal(torch.diagonal(K)[:7900],
+                       (s[0] + s[1]).expand(7900)):
+        fail("cov rbf square: the diagonal is not sf2 + diag_add bitwise")
+    X10 = uniform(10_000, 4)
+    rows = cov_cuda.cov_tile(X10, Xc, s, "rbf", False, 10_000, 2000)
+    alone = cov_cuda.cov_tile(X10[4096:8192], Xc, s, "rbf", False, 4096,
+                              2000)
+    s0 = scal(0.0, "rbf")
+    dense = cov_cuda.cov_tile(X, X, s0, "rbf", True, 8000, 8000)
+    block = cov_cuda.cov_tile(X[4096:8000], X, s0, "rbf", False, 3904, 8000)
+    if not (torch.equal(rows[4096:8192], alone)
+            and torch.equal(dense[4096:], block)):
+        fail("cov: a row block built alone differs from the same rows of "
+             "a larger build")
+    say("cov", diagonal_is_sf2_plus_diag_add=True,
+        rows_4096_8192_of_10000_equal_alone=True,
+        square_rows_equal_cross_block=True)
+    del K, rows, alone, dense, block
+
+    by_shape = time_cov(torch, dev)
+    first = next(iter(by_shape.values()))  # config 2: 8000^2, d=4
+    say("cov", max_abs_err=f"{worst:.3e}")
+    results["cov"] = {"max_abs_err": worst, **first, "by_shape": by_shape}
+
+
+def time_cov(torch, dev, stores=False):
+    """The kernel (rbf) at the main paths' shapes by CUDA events, beside
+    its byte bound, the plain version and fill_ms (out.fill_(1.0) on an
+    output of the same size: the card's practical write rate). stores:
+    each store route in turn, there and back (their A/B)."""
+    from cugp_tpu_torch.ops import cov_cuda
+
+    rng = np.random.default_rng(5)
+    s = torch.tensor([1.3, 0.1, 1.0], dtype=torch.float32, device=dev)
+    by_shape = {}
+    for m, n, d, square in COV_TIMED:
+        X1 = torch.as_tensor(rng.uniform(-2, 2, (m, d)), dtype=torch.float32,
+                             device=dev)
+        X2 = X1 if square else torch.as_tensor(
+            rng.uniform(-2, 2, (n, d)), dtype=torch.float32, device=dev)
+        iters = 3 if m * n > 2e9 else 10
+        ms = cuda_ms(lambda: cov_cuda.cov_tile(X1, X2, s, "rbf", square, m,
+                                               n), iters=iters)
+        fill = torch.empty(m, n, device=dev)
+        fill_ms = cuda_ms(lambda: fill.fill_(1.0), iters=iters)
+        del fill
+        plain_ms = cuda_ms(lambda: cov_cuda.cov_tile_plain(
+            X1, X2, s, "rbf", square, m, n), iters=2, warmup=1)
+        b_ms, b_by = _cov_bound(m, n, d)
+        tag = f"{m}x{n} d={d}"
+        row = {"ms": ms, "fill_ms": fill_ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        say("cov", shape=tag + (" square" if square else " cross"),
+            kernel_ms=f"{ms:.4f}", fill_ms=f"{fill_ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by, share_of_bound=f"{b_ms / ms:.3f}")
+        if stores:
+            ref = cov_cuda.cov_tile(X1, X2, s, "rbf", square, m, n)
+            out = torch.empty_like(ref)
+            names = ("16-byte", "16-byte .cs", "TMA", "4-byte")
+            times = {k: [] for k in names}
+            for name in names + names[::-1]:
+                times[name].append(cuda_ms(lambda: cov_cuda.cov_tile(
+                    X1, X2, s, "rbf", square, m, n, out=out, store=name),
+                    iters=iters))
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    fail(f"cov {tag}: the {name} store route differs")
+                out.fill_(float("nan"))
+            row["stores"] = times
+            say("cov", stores=tag, bitwise_equal=True, **{
+                k.replace(" ", "").replace("-", "_"):
+                ",".join(f"{t:.4f}" for t in v) for k, v in times.items()})
+            del ref, out
+        by_shape[tag] = row
+        del X1, X2
+        torch.cuda.empty_cache()
+    return by_shape
 
 
 def _matvec_bound(n, d, r):
@@ -956,8 +1078,8 @@ def profile_device(torch, tag, fn):
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     say(tag, wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
         idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows))
-    ours = ("cov_matvec", "cov_kernel", "potrf_kernel", "trsm_trtri",
-            "trsm_narrow", "trsm_wide")
+    ours = ("cov_matvec", "cov_tile", "cov_prep", "potrf_kernel",
+            "trsm_trtri", "trsm_narrow", "trsm_wide")
     for i, e in enumerate(rows):
         if i < 12 or any(k in e.key for k in ours):
             say(tag, kernel=repr(e.key[:60]), calls=e.count,
@@ -991,6 +1113,8 @@ def main(argv):
     phase_device(torch)
     phase_build()
     results, paths = {}, {}
+    if "--cov-stores" in opts:  # the store-route A/B alone
+        time_cov(torch, dev, stores=True)
     if 2 in phases:
         phase_cov(torch, dev, results)
         phase_potrf(torch, dev, results)

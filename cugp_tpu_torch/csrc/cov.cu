@@ -1,118 +1,425 @@
 // Covariance tile kernel: K(X1, X2) from lengthscale-scaled rows.
 //
-// Replaces cugp_tpu/ops/cov_pallas.py::_cov_kernel (the fused Pallas
-// covariance tile). Same arithmetic: the cross term X1 X2^T, the row/column
-// squared norms s1/s2, and the per-family epilogue of cov_epilogue.cuh,
+// Replaces cugp_tpu/ops/cov_pallas.py::_cov_kernel (cov_pallas.py:48, the
+// fused Pallas covariance tile). Same function: the cross term X1 X2^T,
+// the squared row norms and the per-family epilogue of cov_epilogue.cuh,
 // then the padding contract of cov_pallas.py:11-14: a square build adds
 // diag_add on the diagonal and writes an identity block at rows/cols
-// >= n_true; a cross build writes 0 beyond the true extent.
+// >= n_true; a cross build writes 0 beyond the true extent. The output is
+// exactly m x n with leading dimension ldo; [sf2, diag_add, alpha] are
+// read through a device pointer, so a fit loop never syncs the host.
 //
-// What bounds it on the H100: at d <= 32 the N^2 fp32 store (4.29 GB at
-// N = 32768, about 1.3 ms at 3.35 TB/s); the expf per element is second.
-// Design: one 64x64 output tile per 256-thread CTA. Each thread owns one
-// column and 16 rows, so every warp store is 32 consecutive floats of one
-// row (a full 128-byte segment). Row chunks of 32 features of X1 and X2
-// are staged in shared memory and the loop over chunks serves any d (the
-// Pallas kernel has two paths, d <= 32 and d > 32). The output is written
-// at exactly m x n with leading dimension ldo; the ragged edge is masked
-// here, so there is no padded output and no crop copy. The three scalars
-// [sf2, diag_add, alpha] are read through a device pointer, so a fit loop
-// never syncs the host to launch a build.
+// What bounds it on the H100: the m n fp32 store (256 MB at 8000^2, 4.29
+// GB at 32768^2). At the byte bound the card issues only ~40
+// thread-instructions an entry, so the design keeps an entry near 10:
+//
+//   pre-pass  one small launch (cov_rows.cuh, shared with cov_matvec.cu):
+//             the rows of X1 and X2 padded to 4 features and 128 rows
+//             (times sqrt(log2 e) for rbf) and their half squared norms,
+//             summed in the cross term's order, into a scratch the wrapper
+//             allocates. A square build of one tensor runs one pass. The
+//             rbf diagonal's exponent is exactly 0: K_ii = sf2 + diag_add.
+//   tiles     persistent CTAs of 256 threads, min(tiles, SMs x resident
+//             CTAs), walk 128 x 128 output tiles in row-major tile order.
+//             A thread owns 16 rows x 4 adjacent columns, so a warp writes
+//             one 512-byte stretch of a row and one broadcast float4 load
+//             of a row feeds 4 entries. At d <= 8 the columns' features
+//             stay in registers; above, the 64 cross sums a thread owns
+//             are formed a 4-feature group at a time.
+//   entry     rbf: 4 cross FMA (d=4), two subtractions, one ex2 (PTX
+//             ex2.approx.ftz on log2-unit rows, as cov_matvec.cu), sf2
+//             once an output. Other kinds: cov_epilogue.cuh's formulas on
+//             the hoisted norms.
+//   masks     only in tiles that meet the diagonal, n1/n2_true or the
+//             ragged edge; interior tiles run a branch-free path.
+//   stores    16-byte stores where ldo % 4 == 0 and out is 16-byte
+//             aligned, else 4-byte stores; the wrapper names the route
+//             (cov_cuda.route). Both compute the same values.
+//
+// No atomics: a launch is bitwise reproducible, and an entry's value does
+// not depend on m, n, its tile or the store route.
 
+#include <climits>
+
+#include <cuda.h>  // CUtensorMap (the TMA store route)
 #include <cuda_runtime.h>
 
-#include "cov_epilogue.cuh"
+#include "cov_rows.cuh"
 
 using namespace cugp;
 
 namespace {
 
-constexpr int TM = 64;         // tile rows
-constexpr int TN = 64;         // tile cols
-constexpr int DC = 32;         // feature chunk staged per pass
+constexpr int BM = 128;              // tile rows
+constexpr int BN = 128;              // tile columns (== BM: a tile meets
+                                     // the diagonal iff ti == tj)
 constexpr int THREADS = 256;
-constexpr int ROW_STEP = THREADS / TN;     // 4
-constexpr int RPT = TM / ROW_STEP;         // 16 rows per thread
+constexpr int WARPS = THREADS / 32;  // 8
+constexpr int RW = BM / WARPS;       // 16 rows a warp, and a thread
+constexpr int ROW_PAD = BM;          // scratch rows padded to this
+constexpr int MAX_DEVICES = 64;
 
+// How a tile's entries reach device memory.
+enum Store { ST_SCALAR = 0, ST_V4 = 1, ST_V4CS = 2, ST_TMA = 3 };
+
+struct Args {
+  const float* x1;  // (m_pad, dp) padded rows of X1
+  const float* h1;  // (m_pad,) their half-norms
+  const float* x2;  // (n_pad, dp), or x1 for a square build of one tensor
+  const float* h2;
+  const float* scal;
+  float* out;
+  long long ldo;
+  int m, n, dp, n1, n2, square, tiles_n, tiles;
+};
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// One output: rbf applies sf2 here (entry() gives K / sf2)
 template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-cov_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-           const float* __restrict__ scal, float* __restrict__ out,
-           int m, int n, int d, long long ldo, int square, int n1, int n2) {
-  __shared__ float a_s[TM][DC + 1];  // X1 chunk, row-major
-  __shared__ float b_s[DC][TN + 1];  // X2 chunk, transposed
-  __shared__ float s1_s[TM];
-  __shared__ float s2_s[TN];
+__device__ __forceinline__ float value(float cross, float hi, float hj,
+                                       float sf2, float alpha) {
+  const float e = entry<KIND>(cross, hi, hj, sf2, alpha);
+  if constexpr (KIND == RBF) return __fmul_rn(sf2, e);
+  else return e;
+}
 
-  const int tid = threadIdx.x;
-  const int col = tid % TN;
-  const int row0 = tid / TN;
-  const int i0 = blockIdx.y * TM;
-  const int j0 = blockIdx.x * TN;
-
-  float acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.0f;
-  if (tid < TM) s1_s[tid] = 0.0f;
-  else if (tid < TM + TN) s2_s[tid - TM] = 0.0f;
-
-  for (int k0 = 0; k0 < d; k0 += DC) {
-    const int kc = min(DC, d - k0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = tid; e < TM * DC; e += THREADS) {
-      const int r = e / DC, k = e % DC;
-      const int gk = k0 + k;
-      const int gi = i0 + r, gj = j0 + r;
-      a_s[r][k] = (gi < m && gk < d) ? x1[(long long)gi * d + gk] : 0.0f;
-      b_s[k][r] = (gj < n && gk < d) ? x2[(long long)gj * d + gk] : 0.0f;
-    }
-    __syncthreads();
-    if (tid < TM) {
-      float s = s1_s[tid];
-      for (int k = 0; k < kc; ++k) s += a_s[tid][k] * a_s[tid][k];
-      s1_s[tid] = s;
-    } else if (tid < TM + TN) {
-      const int c = tid - TM;
-      float s = s2_s[c];
-      for (int k = 0; k < kc; ++k) s += b_s[k][c] * b_s[k][c];
-      s2_s[c] = s;
-    }
-    for (int k = 0; k < kc; ++k) {
-      const float b = b_s[k][col];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] += a_s[row0 + ROW_STEP * r][k] * b;
-    }
-  }
-  __syncthreads();  // s1_s / s2_s complete
-
-  const int gj = j0 + col;
-  if (gj >= n) return;
-  const float sf2 = scal[0], diag_add = scal[1], alpha = scal[2];
-  const float s2 = s2_s[col];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int li = row0 + ROW_STEP * r;
-    const int gi = i0 + li;
-    if (gi >= m) break;
-    float v = epilogue<KIND>(acc[r], s1_s[li], s2, sf2, alpha);
-    const bool pad = gi >= n1 || gj >= n2;
-    if (square) {
-      const bool diag = gi == gj;
-      if (diag) v += diag_add;
-      if (pad) v = diag ? 1.0f : 0.0f;
-    } else if (pad) {
-      v = 0.0f;
-    }
-    out[(long long)gi * ldo + gj] = v;
+template <int ST>
+__device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
+  if constexpr (ST == ST_SCALAR) {
+    p[0] = v[0];
+    p[1] = v[1];
+    p[2] = v[2];
+    p[3] = v[3];
+  } else if constexpr (ST == ST_V4CS) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
+// The 4 entries of each of this thread's RW rows of a tile: rows i..i+RW-1,
+// columns j..j+3. put(r, v) takes row r's four. MASKED adds diag_add on the
+// diagonal and applies the padding contract; the interior path has neither.
+// DP4 > 0: d <= 4 DP4 features, the columns' features held in registers
+// and each row's cross terms formed as it is stored; DP4 == 0: any d, the
+// RW x 4 cross sums formed first, a 4-feature group at a time.
+template <int KIND, int DP4, bool MASKED, class Put>
+__device__ __forceinline__ void tile(const Args& a, int i, int j, float sf2,
+                                     float diag_add, float alpha, Put&& put) {
+  const int dp = DP4 > 0 ? 4 * DP4 : a.dp;
+  const float* x1 = a.x1 + static_cast<long long>(i) * dp;
+  const float* x2 = a.x2 + static_cast<long long>(j) * dp;
+  float hi[RW];
+#pragma unroll
+  for (int q = 0; q < RW; q += 4) {
+    const float4 t = ldg4(a.h1 + i + q);
+    hi[q] = t.x;
+    hi[q + 1] = t.y;
+    hi[q + 2] = t.z;
+    hi[q + 3] = t.w;
+  }
+  const float4 h4 = ldg4(a.h2 + j);
+  const float hj[4] = {h4.x, h4.y, h4.z, h4.w};
+
+  constexpr int KB = DP4 > 0 ? DP4 : 1;
+  float4 b[4][KB];                    // DP4 > 0: the columns' features
+  float acc[DP4 > 0 ? 1 : RW][4];     // DP4 == 0: the cross sums
+  if constexpr (DP4 > 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < DP4; ++k) b[c][k] = ldg4(x2 + c * dp + 4 * k);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[c][0] = ldg4(x2 + c * dp);
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float4 ar = ldg4(x1 + r * dp);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = start4(ar, b[c][0]);
+    }
+    for (int k = 4; k < dp; k += 4) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c][0] = ldg4(x2 + c * dp + k);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float4 ar = ldg4(x1 + r * dp + k);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fma4(ar, b[c][0], acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    float cr[4];
+    if constexpr (DP4 > 0) {
+      float4 ar[DP4];
+#pragma unroll
+      for (int k = 0; k < DP4; ++k) ar[k] = ldg4(x1 + r * dp + 4 * k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        cr[c] = start4(ar[0], b[c][0]);
+#pragma unroll
+        for (int k = 1; k < DP4; ++k) cr[c] = fma4(ar[k], b[c][k], cr[c]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cr[c] = acc[r][c];
+    }
+    float v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      v[c] = value<KIND>(cr[c], hi[r], hj[c], sf2, alpha);
+    if constexpr (MASKED) {
+      const int gi = i + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gj = j + c;
+        const bool pad = gi >= a.n1 || gj >= a.n2;
+        if (a.square) {
+          const bool diag = gi == gj;
+          if (diag) v[c] = __fadd_rn(v[c], diag_add);
+          if (pad) v[c] = diag ? 1.0f : 0.0f;
+        } else if (pad) {
+          v[c] = 0.0f;
+        }
+      }
+    }
+    put(r, v);
+  }
+}
+
+// Is tile (ti, tj) clear of the diagonal, the padding and the ragged edge?
+__device__ __forceinline__ bool interior(const Args& a, int ti, int tj) {
+  return (ti + 1) * BM <= a.n1 && (tj + 1) * BN <= a.n2 &&
+         !(a.square && ti == tj);
+}
+
+template <int KIND, int DP4, int ST>
+__global__ void __launch_bounds__(THREADS, 2) cov_tile_kernel(Args a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float sf2 = a.scal[0], diag_add = a.scal[1], alpha = a.scal[2];
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    const int ti = t / a.tiles_n, tj = t - ti * a.tiles_n;
+    const int i = ti * BM + RW * warp, j = tj * BN + 4 * lane;
+    float* row0 = a.out + static_cast<long long>(i) * a.ldo + j;
+    if (interior(a, ti, tj)) {
+      tile<KIND, DP4, false>(a, i, j, sf2, diag_add, alpha,
+                             [&](int r, const float (&v)[4]) {
+                               put4<ST>(row0 + r * a.ldo, v);
+                             });
+    } else {
+      tile<KIND, DP4, true>(a, i, j, sf2, diag_add, alpha,
+                            [&](int r, const float (&v)[4]) {
+                              if (i + r >= a.m) return;
+                              float* p = row0 + r * a.ldo;
+                              if (j + 3 < a.n) {
+                                put4<ST>(p, v);
+                              } else {
+#pragma unroll
+                                for (int c = 0; c < 4; ++c)
+                                  if (j + c < a.n) p[c] = v[c];
+                              }
+                            });
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// TMA store route: each tile is built in one of two shared-memory buffers
+// and stored by one cp.async.bulk.tensor.2d, which clips the ragged edge;
+// the next tile is built while it drains.
+
+constexpr size_t TMA_SMEM = 2 * BM * BN * sizeof(float);
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const float* src, int col,
+                                          int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];\n" ::"l"(reinterpret_cast<unsigned long long>(
+          map)),
+      "r"(col), "r"(row),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(src)))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int KIND, int DP4>
+__global__ void __launch_bounds__(THREADS, 1)
+cov_tile_tma(Args a, const __grid_constant__ CUtensorMap map) {
+  extern __shared__ __align__(128) float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float sf2 = a.scal[0], diag_add = a.scal[1], alpha = a.scal[2];
+  int it = 0;
+  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++it) {
+    const int ti = t / a.tiles_n, tj = t - ti * a.tiles_n;
+    const int i = ti * BM + RW * warp, j = tj * BN + 4 * lane;
+    float* buf = smem + (it & 1) * BM * BN;
+    if (it >= 2) {  // the store two tiles back has read this buffer
+      if (threadIdx.x == 0)
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      __syncthreads();
+    }
+    float* dst = buf + RW * warp * BN + 4 * lane;
+    auto put = [&](int r, const float (&v)[4]) {
+      *reinterpret_cast<float4*>(dst + r * BN) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    };
+    if (interior(a, ti, tj))
+      tile<KIND, DP4, false>(a, i, j, sf2, diag_add, alpha, put);
+    else
+      tile<KIND, DP4, true>(a, i, j, sf2, diag_add, alpha, put);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) tma_store(&map, buf, tj * BN, ti * BM);
+  }
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(THREADS)
+cov_prep(const float* __restrict__ x1, const float* __restrict__ x2,
+         float* __restrict__ xs1, float* __restrict__ h1,
+         float* __restrict__ xs2, float* __restrict__ h2, int m, int n,
+         int d, int dp, int m_pad, int n_pad, float scale) {
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  const long long total = static_cast<long long>(m_pad) + n_pad;
+  for (long long e = static_cast<long long>(blockIdx.x) * THREADS +
+                     threadIdx.x;
+       e < total; e += stride) {
+    if (e < m_pad) prep_row(x1, xs1, h1, e, m, d, dp, scale);
+    else prep_row(x2, xs2, h2, e - m_pad, n, d, dp, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers. The persistent grid is min(tiles, SMs x resident CTAs of the
+// kernel), the latter computed once per device and kernel.
+
+template <auto KERN>
+cudaError_t resident_ctas(size_t smem, int* out) {
+  static int cache[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(KERN,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERN,
+                                                        THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    cache[dev] = per_sm * sms;
+  }
+  *out = cache[dev];
+  return cudaSuccess;
+}
+
+template <auto KERN>
+cudaError_t launch_tiles(const Args& a, cudaStream_t s) {
+  int cap = 0;
+  cudaError_t err = resident_ctas<KERN>(0, &cap);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<Args*>(&a)};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(KERN),
+                          dim3(a.tiles < cap ? a.tiles : cap), dim3(THREADS),
+                          args, 0, s);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The (m, n) output as a TMA tensor map with BM x BN boxes. The driver's
+// encoder comes through the runtime (no -lcuda).
+cudaError_t encode_out(const Args& a, CUtensorMap* map) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.n),
+                              static_cast<cuuint64_t>(a.m)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.ldo) * 4};
+  const cuuint32_t box[2] = {BN, BM};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, a.out, dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int KIND, int DP4>
+cudaError_t launch_tma(const Args& a, cudaStream_t s) {
+  CUtensorMap map;
+  cudaError_t err = encode_out(a, &map);
+  if (err != cudaSuccess) return err;
+  int cap = 0;
+  err = resident_ctas<cov_tile_tma<KIND, DP4>>(TMA_SMEM, &cap);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<Args*>(&a), &map};
+  return cudaLaunchKernel(
+      reinterpret_cast<const void*>(cov_tile_tma<KIND, DP4>),
+      dim3(a.tiles < cap ? a.tiles : cap), dim3(THREADS), args, TMA_SMEM, s);
+}
+
+template <int KIND, int DP4>
+cudaError_t launch_store(const Args& a, int store, cudaStream_t s) {
+  if (store == ST_SCALAR)
+    return launch_tiles<cov_tile_kernel<KIND, DP4, ST_SCALAR>>(a, s);
+  if (store == ST_V4)
+    return launch_tiles<cov_tile_kernel<KIND, DP4, ST_V4>>(a, s);
+  if constexpr (KIND == RBF && DP4 > 0) {  // the store-route A/B
+    if (store == ST_V4CS)
+      return launch_tiles<cov_tile_kernel<KIND, DP4, ST_V4CS>>(a, s);
+    if (store == ST_TMA) return launch_tma<KIND, DP4>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int KIND>
-void launch(dim3 grid, cudaStream_t s, const float* x1, const float* x2,
-            const float* scal, float* out, int m, int n, int d,
-            long long ldo, int square, int n1, int n2) {
-  cov_kernel<KIND><<<grid, THREADS, 0, s>>>(x1, x2, scal, out, m, n, d, ldo,
-                                            square, n1, n2);
+cudaError_t launch_kind(const Args& a, int store, cudaStream_t s) {
+  if (a.dp == 4) return launch_store<KIND, 1>(a, store, s);
+  if (a.dp == 8) return launch_store<KIND, 2>(a, store, s);
+  return launch_store<KIND, 0>(a, store, s);
+}
+
+struct Plan {
+  int dp, m_pad, n_pad;  // n_pad = 0: X2 is X1
+  long long floats;      // of the scratch
+};
+
+Plan plan(int m, int n, int d, int same) {
+  Plan p;
+  p.dp = pad4(d);
+  p.m_pad = (m + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  p.n_pad = same ? 0 : (n + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  p.floats = (static_cast<long long>(p.m_pad) + p.n_pad) * (p.dp + 1);
+  return p;
 }
 
 }  // namespace
@@ -121,26 +428,61 @@ extern "C" const char* cugp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Floats of the scratch cugp_cov takes (same: X2 is X1, one pre-pass);
+// -1 past INT_MAX.
+extern "C" int cugp_cov_scratch(int m, int n, int d, int same) {
+  if (m <= 0 || n <= 0 || d <= 0) return 0;
+  const long long f = plan(m, n, d, same).floats;
+  return f > INT_MAX ? -1 : static_cast<int>(f);
+}
+
 // x1 (m, d) and x2 (n, d) row-major fp32, already divided by the
-// lengthscale; scal = [sf2, diag_add, alpha] on the device; out (m, n)
-// with leading dimension ldo. kind: 0 rbf, 1 matern12, 2 matern32,
-// 3 matern52, 4 rq, 5 linear.
+// lengthscale (x2 == x1 with m == n: one tensor, one pre-pass); scal =
+// [sf2, diag_add, alpha] on the device; out (m, n) with leading dimension
+// ldo; scratch: cugp_cov_scratch floats, 16-byte aligned. kind: 0 rbf,
+// 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. store: 0 4-byte
+// stores, 1 16-byte stores (ldo % 4 == 0, out 16-byte aligned), 2 16-byte
+// streaming stores, 3 TMA tile stores (2 and 3: rbf at d <= 8). Two
+// launches: the pre-pass, then the tiles.
 extern "C" int cugp_cov(const float* x1, const float* x2, const float* scal,
-                        float* out, int m, int n, int d, long long ldo,
-                        int kind, int square, int n1_true, int n2_true,
-                        void* stream) {
+                        float* out, float* scratch, int m, int n, int d,
+                        long long ldo, int kind, int square, int n1_true,
+                        int n2_true, int store, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (d <= 0 || (m + TM - 1) / TM > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
+  const bool aligned = ldo % 4 == 0 &&
+                       (reinterpret_cast<size_t>(out) & 15) == 0;
+  if (d <= 0 || kind < RBF || kind > LINEAR || ldo < n ||
+      (reinterpret_cast<size_t>(scratch) & 15) != 0 ||
+      (store != ST_SCALAR && !aligned))
+    return cudaErrorInvalidValue;
+  const int same = x1 == x2 && m == n;
+  const Plan p = plan(m, n, d, same);
+  const long long tiles_n = (n + BN - 1) / BN;
+  const long long tiles = (m + BM - 1) / BM * tiles_n;
+  if (p.floats > INT_MAX || tiles > INT_MAX) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* xs1 = scratch;
+  float* h1 = xs1 + static_cast<long long>(p.m_pad) * p.dp;
+  float* xs2 = same ? xs1 : h1 + p.m_pad;
+  float* h2 = same ? h1 : xs2 + static_cast<long long>(p.n_pad) * p.dp;
+  const long long rows = static_cast<long long>(p.m_pad) + p.n_pad;
+  const int blocks = static_cast<int>(
+      rows / THREADS + 1 < 1024 ? rows / THREADS + 1 : 1024);
+  cov_prep<<<blocks, THREADS, 0, s>>>(x1, x2, xs1, h1, xs2, h2, m, n, d,
+                                      p.dp, p.m_pad, p.n_pad,
+                                      kind == RBF ? SQRT_LOG2E : 1.0f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Args a{xs1, h1, xs2, h2, scal, out, ldo, m, n, p.dp,
+               n1_true, n2_true, square, static_cast<int>(tiles_n),
+               static_cast<int>(tiles)};
   switch (kind) {
-    case RBF: launch<RBF>(grid, s, x1, x2, scal, out, m, n, d, ldo, square, n1_true, n2_true); break;
-    case MATERN12: launch<MATERN12>(grid, s, x1, x2, scal, out, m, n, d, ldo, square, n1_true, n2_true); break;
-    case MATERN32: launch<MATERN32>(grid, s, x1, x2, scal, out, m, n, d, ldo, square, n1_true, n2_true); break;
-    case MATERN52: launch<MATERN52>(grid, s, x1, x2, scal, out, m, n, d, ldo, square, n1_true, n2_true); break;
-    case RQ: launch<RQ>(grid, s, x1, x2, scal, out, m, n, d, ldo, square, n1_true, n2_true); break;
-    case LINEAR: launch<LINEAR>(grid, s, x1, x2, scal, out, m, n, d, ldo, square, n1_true, n2_true); break;
-    default: return cudaErrorInvalidValue;
+    case RBF: err = launch_kind<RBF>(a, store, s); break;
+    case MATERN12: err = launch_kind<MATERN12>(a, store, s); break;
+    case MATERN32: err = launch_kind<MATERN32>(a, store, s); break;
+    case MATERN52: err = launch_kind<MATERN52>(a, store, s); break;
+    case RQ: err = launch_kind<RQ>(a, store, s); break;
+    default: err = launch_kind<LINEAR>(a, store, s); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

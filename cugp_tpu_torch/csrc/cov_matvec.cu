@@ -11,7 +11,8 @@
 // entries of K costs the cross term (d FMAs), the epilogue and r
 // contraction FMAs (n = 100k: 1e10 entries). Two routes, by r:
 //
-//   pre-pass     one small launch: the rows scaled (by sqrt(log2 e) for
+//   pre-pass     one small launch (its row code is cov_rows.cuh, shared
+//                with cov.cu): the rows scaled (by sqrt(log2 e) for
 //                rbf, so the cross term and the norms come out in log2
 //                units), padded to a multiple of 4 features and of 128
 //                rows; each row's half squared norm h = s / 2 (the cross
@@ -62,7 +63,7 @@
 
 #include <cuda_runtime.h>
 
-#include "cov_epilogue.cuh"
+#include "cov_rows.cuh"
 
 using namespace cugp;
 
@@ -73,7 +74,6 @@ constexpr int WARPS = THREADS / 32;  // 8
 constexpr int STAGES = 3;            // cp.async ring depth, both routes
 constexpr int DC = 32;               // features a staged chunk holds
 constexpr int ROW_PAD = 128;         // rows padded to a multiple of this
-constexpr float SQRT_LOG2E = 1.2011224087864498f;
 
 // narrow route
 constexpr int NARROW_MAX = 32;       // widest r it takes
@@ -85,7 +85,6 @@ constexpr int WBM = 128;             // rows a CTA
 constexpr int WBN = 32;              // columns a K tile
 constexpr int WVW = 128;             // V columns a CTA
 
-__host__ __device__ constexpr int pad4(int x) { return (x + 3) / 4 * 4; }
 // rows a lane owns in the narrow route (register budget: R * RC sums)
 __host__ __device__ constexpr int narrow_rows(int rc) {
   return rc <= 12 ? 4 : 2;
@@ -117,42 +116,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// One entry of K from the cross term and the half-norms. rbf: K / sf2 in
-// log2 units (sf2 is applied per output); the other kinds: their
-// cov_epilogue.cuh formula on s = 2h.
-template <int KIND>
-__device__ __forceinline__ float entry(float cross, float hi, float hj,
-                                       float sf2, float alpha) {
-  if constexpr (KIND == RBF) return ex2((cross - hi) - hj);
-  else return epilogue<KIND>(cross, hi + hi, hj + hj, sf2, alpha);
-}
-
-// c + a . b over 4 features, in the norms' fmaf order
-__device__ __forceinline__ float fma4(float4 a, float4 b, float c) {
-  c = fmaf(a.x, b.x, c);
-  c = fmaf(a.y, b.y, c);
-  c = fmaf(a.z, b.z, c);
-  return fmaf(a.w, b.w, c);
-}
-// a . b over the first 4 features: fma4 from 0 (a.x b.x is fmaf(a.x,
-// b.x, 0) rounded the same way), with no zeroed sum to start from
-__device__ __forceinline__ float start4(float4 a, float4 b) {
-  float c = a.x * b.x;
-  c = fmaf(a.y, b.y, c);
-  c = fmaf(a.z, b.z, c);
-  return fmaf(a.w, b.w, c);
-}
-
 // The scratch the pre-pass writes: padded rows, half-norms, padded V.
 struct Scratch {
   float* xs;  // (npad, dp)
@@ -167,15 +130,8 @@ cov_matvec_prep(const float* __restrict__ x, const float* __restrict__ v,
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   const long long first = static_cast<long long>(blockIdx.x) * THREADS +
                           threadIdx.x;
-  for (long long i = first; i < npad; i += stride) {
-    float s = 0.0f;
-    for (int k = 0; k < dp; ++k) {
-      const float xk = (i < n && k < d) ? x[i * d + k] * scale : 0.0f;
-      o.xs[i * dp + k] = xk;
-      s = fmaf(xk, xk, s);
-    }
-    o.h[i] = 0.5f * s;
-  }
+  for (long long i = first; i < npad; i += stride)
+    prep_row(x, o.xs, o.h, i, n, d, dp, scale);
   for (long long e = first; e < static_cast<long long>(npad) * vw;
        e += stride) {
     const long long i = e / vw;

@@ -22,6 +22,9 @@ KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3,
               "rq": 4, "linear": 5}
 
 LAUNCHES = 0  # kernel launches by cov_tile (plain CPU calls do not count)
+TILE = 128  # rows and columns of an output tile of csrc/cov.cu
+# store routes of csrc/cov.cu; ".cs" and "TMA" are the A/B's alone
+STORES = {"4-byte": 0, "16-byte": 1, "16-byte .cs": 2, "TMA": 3}
 
 
 def kernel_fn_plain(d2, kind, alpha):
@@ -77,32 +80,64 @@ def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
     return k
 
 
-def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true):
-    """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU."""
+def route(ldo, ptr):
+    """The kernel's store route for an output with leading dimension ldo
+    at address ptr: "16-byte" where ldo % 4 == 0 and ptr is 16-byte
+    aligned, else "4-byte". Both routes write the same values."""
+    return "16-byte" if ldo % 4 == 0 and ptr % 16 == 0 else "4-byte"
+
+
+def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true, out=None,
+             store=None):
+    """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU.
+
+    out: an (m, n) float32 tensor with unit column stride to write into
+    (any leading dimension), else a new one. store: a STORES name, else
+    route(out.stride(0), out.data_ptr()).
+    """
     global LAUNCHES
     if kind not in KIND_CODES:
         raise ValueError(f"cov_tile takes base families {tuple(KIND_CODES)}"
                          f" (periodic via the rbf view), got {kind!r}")
+    m, d = xs1.shape
+    n, d2 = xs2.shape
+    if out is not None and (out.shape != (m, n) or out.dtype != torch.float32
+                            or out.device != xs1.device
+                            or out.stride(1) != 1):
+        raise ValueError(f"cov_tile: out must be ({m}, {n}) float32 on "
+                         f"{xs1.device} with unit column stride, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}, "
+                         f"strides {out.stride()}")
     if xs1.device.type != "cuda":
-        return cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true)
+        k = cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true)
+        return k if out is None else out.copy_(k)
     for name, t in (("xs1", xs1), ("xs2", xs2), ("scal", scal)):
         if t.dtype != torch.float32 or t.device != xs1.device:
             raise ValueError(f"cov_tile: {name} must be float32 on "
                              f"{xs1.device}, got {t.dtype} on {t.device}")
-    m, d = xs1.shape
-    n, d2 = xs2.shape
     if d2 != d or scal.numel() != 3:
         raise ValueError(f"cov_tile: shapes {tuple(xs1.shape)}, "
                          f"{tuple(xs2.shape)}, scal {tuple(scal.shape)}")
     xs1, xs2, scal = xs1.contiguous(), xs2.contiguous(), scal.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
+    if store is None:
+        store = route(out.stride(0), out.data_ptr())
     lib = _build.lib()
+    # X2 is X1 (a square build of one tensor): one pre-pass
+    same = int(xs1.data_ptr() == xs2.data_ptr() and m == n)
+    floats = lib.cugp_cov_scratch(m, n, d, same)
+    if floats < 0:
+        raise ValueError(f"cov_tile: m={m}, n={n}, d={d} needs a scratch "
+                         "past 2^31 floats")
+    # padded rows and half-norms: 0.3 MB at 8000 x 8000, d = 4
+    scratch = torch.empty(floats, dtype=torch.float32, device=xs1.device)
     with torch.cuda.device(xs1.device):
         err = lib.cugp_cov(xs1.data_ptr(), xs2.data_ptr(), scal.data_ptr(),
-                           out.data_ptr(), m, n, d, out.stride(0),
-                           KIND_CODES[kind], int(square),
+                           out.data_ptr(), scratch.data_ptr(), m, n, d,
+                           out.stride(0), KIND_CODES[kind], int(square),
                            min(int(n1_true), m), min(int(n2_true), n),
-                           _build.stream_of(xs1))
+                           STORES[store], _build.stream_of(xs1))
     _build.check(err, "cov")
     LAUNCHES += 1
     return out
