@@ -315,11 +315,10 @@ def phase_cov(torch, dev, results):
     results["cov"] = {"max_abs_err": worst, **first, "by_shape": by_shape}
 
 
-def time_cov(torch, dev, stores=False):
+def time_cov(torch, dev):
     """The kernel (rbf) at the main paths' shapes by CUDA events, beside
     its byte bound, the plain version and fill_ms (out.fill_(1.0) on an
-    output of the same size: the card's practical write rate). stores:
-    each store route in turn, there and back (their A/B)."""
+    output of the same size: the card's practical write rate)."""
     from cugp_tpu_torch.ops import cov_cuda
 
     rng = np.random.default_rng(5)
@@ -330,11 +329,13 @@ def time_cov(torch, dev, stores=False):
                              device=dev)
         X2 = X1 if square else torch.as_tensor(
             rng.uniform(-2, 2, (n, d)), dtype=torch.float32, device=dev)
+        # 5 calls back to back a sample: the device's time, not the
+        # host's to issue a call
         iters = 3 if m * n > 2e9 else 10
         ms = cuda_ms(lambda: cov_cuda.cov_tile(X1, X2, s, "rbf", square, m,
-                                               n), iters=iters)
+                                               n), iters=iters, reps=5)
         fill = torch.empty(m, n, device=dev)
-        fill_ms = cuda_ms(lambda: fill.fill_(1.0), iters=iters)
+        fill_ms = cuda_ms(lambda: fill.fill_(1.0), iters=iters, reps=5)
         del fill
         plain_ms = cuda_ms(lambda: cov_cuda.cov_tile_plain(
             X1, X2, s, "rbf", square, m, n), iters=2, warmup=1)
@@ -346,24 +347,6 @@ def time_cov(torch, dev, stores=False):
             kernel_ms=f"{ms:.4f}", fill_ms=f"{fill_ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}",
             bound_by=b_by, share_of_bound=f"{b_ms / ms:.3f}")
-        if stores:
-            ref = cov_cuda.cov_tile(X1, X2, s, "rbf", square, m, n)
-            out = torch.empty_like(ref)
-            names = ("16-byte", "16-byte .cs", "TMA", "4-byte")
-            times = {k: [] for k in names}
-            for name in names + names[::-1]:
-                times[name].append(cuda_ms(lambda: cov_cuda.cov_tile(
-                    X1, X2, s, "rbf", square, m, n, out=out, store=name),
-                    iters=iters))
-                torch.cuda.synchronize()
-                if not torch.equal(out, ref):
-                    fail(f"cov {tag}: the {name} store route differs")
-                out.fill_(float("nan"))
-            row["stores"] = times
-            say("cov", stores=tag, bitwise_equal=True, **{
-                k.replace(" ", "").replace("-", "_"):
-                ",".join(f"{t:.4f}" for t in v) for k, v in times.items()})
-            del ref, out
         by_shape[tag] = row
         del X1, X2
         torch.cuda.empty_cache()
@@ -404,8 +387,7 @@ def phase_cov_matvec(torch, dev, results, n=8000, n_time=100_000):
                             sf2 * torch.sqrt(8 * 1.1920929e-07 * s12), 0.0)
         return slack @ v.abs()
 
-    for kind in ("rbf", "matern12", "matern32", "matern52", "rq", "linear",
-                 "periodic"):
+    for kind in COV_KINDS:
         errs = []
         for d in (4, 40):
             X = torch.as_tensor(rng.uniform(-2, 2, (n, d)),
@@ -1113,8 +1095,6 @@ def main(argv):
     phase_device(torch)
     phase_build()
     results, paths = {}, {}
-    if "--cov-stores" in opts:  # the store-route A/B alone
-        time_cov(torch, dev, stores=True)
     if 2 in phases:
         phase_cov(torch, dev, results)
         phase_potrf(torch, dev, results)

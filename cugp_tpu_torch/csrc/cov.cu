@@ -11,37 +11,45 @@
 //
 // What bounds it on the H100: the m n fp32 store (256 MB at 8000^2, 4.29
 // GB at 32768^2). At the byte bound the card issues only ~40
-// thread-instructions an entry, so the design keeps an entry near 10:
+// thread-instructions an entry, so an entry is kept near 10:
 //
-//   pre-pass  one small launch (cov_rows.cuh, shared with cov_matvec.cu):
-//             the rows of X1 and X2 padded to 4 features and 128 rows
-//             (times sqrt(log2 e) for rbf) and their half squared norms,
-//             summed in the cross term's order, into a scratch the wrapper
-//             allocates. A square build of one tensor runs one pass. The
+//   pre-pass  one small launch (row code in cov_rows.cuh, shared with
+//             cov_matvec.cu): the rows of X1 and X2 padded to 4 features
+//             and 128 rows (times sqrt(log2 e) for rbf) and their half
+//             squared norms, summed in the cross term's order, into a
+//             scratch the wrapper allocates; one pass when X2 is X1. The
 //             rbf diagonal's exponent is exactly 0: K_ii = sf2 + diag_add.
 //   tiles     persistent CTAs of 256 threads, min(tiles, SMs x resident
 //             CTAs), walk 128 x 128 output tiles in row-major tile order.
 //             A thread owns 16 rows x 4 adjacent columns, so a warp writes
-//             one 512-byte stretch of a row and one broadcast float4 load
-//             of a row feeds 4 entries. At d <= 8 the columns' features
-//             stay in registers; above, the 64 cross sums a thread owns
-//             are formed a 4-feature group at a time.
-//   entry     rbf: 4 cross FMA (d=4), two subtractions, one ex2 (PTX
-//             ex2.approx.ftz on log2-unit rows, as cov_matvec.cu), sf2
-//             once an output. Other kinds: cov_epilogue.cuh's formulas on
-//             the hoisted norms.
+//             a 512-byte stretch of a row and one warp-uniform float4 load
+//             of a row (a broadcast from L1) feeds 4 entries. At d <= 8
+//             the columns' features stay in registers. Above, the cross
+//             sums of 8 rows x 4 columns are formed a 4-feature group at a
+//             time, the groups read through L1 like the rows: no shared
+//             memory, no barrier (d > 8 is off the main paths).
+//   entry     rbf: 4 cross FMA (d = 4), two subtractions, one ex2 (PTX
+//             ex2.approx.ftz on log2-unit rows, as cov_matvec.cu: one MUFU
+//             where expf costs about 8 instructions) and sf2 once. Other
+//             kinds: cov_epilogue.cuh's formulas on the hoisted norms.
 //   masks     only in tiles that meet the diagonal, n1/n2_true or the
 //             ragged edge; interior tiles run a branch-free path.
-//   stores    16-byte stores where ldo % 4 == 0 and out is 16-byte
-//             aligned, else 4-byte stores; the wrapper names the route
-//             (cov_cuda.route). Both compute the same values.
+//   stores    16-byte streaming stores (st.global.cs.v4) where ldo % 4 == 0
+//             and out is 16-byte aligned (every main-path shape), else
+//             4-byte streaming stores; cov_cuda.route names the route and
+//             both write the same bits. By A/B on the card the streaming
+//             hint beat plain 16-byte stores by 10% at 32768^2 and TMA
+//             tile stores from a double-buffered shared tile by 22%.
 //
 // No atomics: a launch is bitwise reproducible, and an entry's value does
-// not depend on m, n, its tile or the store route.
+// not depend on m, n, its tile or the store route, so a row block built
+// alone equals the same rows of a larger build. Measured on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py phase 2; PERF.md, PR 7): 1.42-1.45 ms at
+// 32768^2, d = 8, against a 1.283 ms byte bound and 1.315 ms for
+// out.fill_(1.0) on the same output: the write rate bounds it.
 
 #include <climits>
 
-#include <cuda.h>  // CUtensorMap (the TMA store route)
 #include <cuda_runtime.h>
 
 #include "cov_rows.cuh"
@@ -58,9 +66,6 @@ constexpr int WARPS = THREADS / 32;  // 8
 constexpr int RW = BM / WARPS;       // 16 rows a warp, and a thread
 constexpr int ROW_PAD = BM;          // scratch rows padded to this
 constexpr int MAX_DEVICES = 64;
-
-// How a tile's entries reach device memory.
-enum Store { ST_SCALAR = 0, ST_V4 = 1, ST_V4CS = 2, ST_TMA = 3 };
 
 struct Args {
   const float* x1;  // (m_pad, dp) padded rows of X1
@@ -86,17 +91,17 @@ __device__ __forceinline__ float value(float cross, float hi, float hj,
   else return e;
 }
 
-template <int ST>
+// Row r's four entries at p, as streaming stores (st.global.cs: the output
+// is written once and not read back here, so L2 keeps the rows instead).
+// V4: one 16-byte store (p 16-byte aligned), else four 4-byte stores.
+template <bool V4>
 __device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
-  if constexpr (ST == ST_SCALAR) {
-    p[0] = v[0];
-    p[1] = v[1];
-    p[2] = v[2];
-    p[3] = v[3];
-  } else if constexpr (ST == ST_V4CS) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  if constexpr (V4) {
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(v[0], v[1], v[2], v[3]));
   } else {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) __stcs(p + c, v[c]);
   }
 }
 
@@ -104,11 +109,13 @@ __device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
 // columns j..j+3. put(r, v) takes row r's four. MASKED adds diag_add on the
 // diagonal and applies the padding contract; the interior path has neither.
 // DP4 > 0: d <= 4 DP4 features, the columns' features held in registers
-// and each row's cross terms formed as it is stored; DP4 == 0: any d, the
-// RW x 4 cross sums formed first, a 4-feature group at a time.
+// and each row's cross terms formed as it is stored. DP4 == 0: any d, the
+// cross sums of RH rows at a time formed first, a 4-feature group at a
+// time (the columns' features are read once for each RH rows).
 template <int KIND, int DP4, bool MASKED, class Put>
 __device__ __forceinline__ void tile(const Args& a, int i, int j, float sf2,
                                      float diag_add, float alpha, Put&& put) {
+  constexpr int RH = DP4 > 0 ? RW : 8;
   const int dp = DP4 > 0 ? 4 * DP4 : a.dp;
   const float* x1 = a.x1 + static_cast<long long>(i) * dp;
   const float* x2 = a.x2 + static_cast<long long>(j) * dp;
@@ -123,73 +130,74 @@ __device__ __forceinline__ void tile(const Args& a, int i, int j, float sf2,
   }
   const float4 h4 = ldg4(a.h2 + j);
   const float hj[4] = {h4.x, h4.y, h4.z, h4.w};
-
-  constexpr int KB = DP4 > 0 ? DP4 : 1;
-  float4 b[4][KB];                    // DP4 > 0: the columns' features
-  float acc[DP4 > 0 ? 1 : RW][4];     // DP4 == 0: the cross sums
-  if constexpr (DP4 > 0) {
+  float4 b[4][DP4 > 0 ? DP4 : 1];  // DP4 > 0: the columns' features
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int k = 0; k < DP4; ++k) b[c][k] = ldg4(x2 + c * dp + 4 * k);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c][0] = ldg4(x2 + c * dp);
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float4 ar = ldg4(x1 + r * dp);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = start4(ar, b[c][0]);
-    }
-    for (int k = 4; k < dp; k += 4) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c][0] = ldg4(x2 + c * dp + k);
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float4 ar = ldg4(x1 + r * dp + k);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fma4(ar, b[c][0], acc[r][c]);
-      }
-    }
-  }
+    for (int k = 0; k < DP4; ++k) b[c][k] = ldg4(x2 + c * dp + 4 * k);
 
 #pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    float cr[4];
-    if constexpr (DP4 > 0) {
-      float4 ar[DP4];
+  for (int r0 = 0; r0 < RW; r0 += RH) {
+    float acc[DP4 > 0 ? 1 : RH][4];  // DP4 == 0: the cross sums
+    if constexpr (DP4 == 0) {
 #pragma unroll
-      for (int k = 0; k < DP4; ++k) ar[k] = ldg4(x1 + r * dp + 4 * k);
+      for (int c = 0; c < 4; ++c) b[c][0] = ldg4(x2 + c * dp);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        cr[c] = start4(ar[0], b[c][0]);
+      for (int r = 0; r < RH; ++r) {
+        const float4 ar = ldg4(x1 + (r0 + r) * dp);
 #pragma unroll
-        for (int k = 1; k < DP4; ++k) cr[c] = fma4(ar[k], b[c][k], cr[c]);
+        for (int c = 0; c < 4; ++c) acc[r][c] = start4(ar, b[c][0]);
       }
-    } else {
+      for (int k = 4; k < dp; k += 4) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) cr[c] = acc[r][c];
-    }
-    float v[4];
+        for (int c = 0; c < 4; ++c) b[c][0] = ldg4(x2 + c * dp + k);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      v[c] = value<KIND>(cr[c], hi[r], hj[c], sf2, alpha);
-    if constexpr (MASKED) {
-      const int gi = i + r;
+        for (int r = 0; r < RH; ++r) {
+          const float4 ar = ldg4(x1 + (r0 + r) * dp + k);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int gj = j + c;
-        const bool pad = gi >= a.n1 || gj >= a.n2;
-        if (a.square) {
-          const bool diag = gi == gj;
-          if (diag) v[c] = __fadd_rn(v[c], diag_add);
-          if (pad) v[c] = diag ? 1.0f : 0.0f;
-        } else if (pad) {
-          v[c] = 0.0f;
+          for (int c = 0; c < 4; ++c)
+            acc[r][c] = fma4(ar, b[c][0], acc[r][c]);
         }
       }
     }
-    put(r, v);
+#pragma unroll
+    for (int r = r0; r < r0 + RH; ++r) {
+      float cr[4];
+      if constexpr (DP4 > 0) {
+        float4 ar[DP4];
+#pragma unroll
+        for (int k = 0; k < DP4; ++k) ar[k] = ldg4(x1 + r * dp + 4 * k);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          cr[c] = start4(ar[0], b[c][0]);
+#pragma unroll
+          for (int k = 1; k < DP4; ++k) cr[c] = fma4(ar[k], b[c][k], cr[c]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) cr[c] = acc[r - r0][c];
+      }
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = value<KIND>(cr[c], hi[r], hj[c], sf2, alpha);
+      if constexpr (MASKED) {
+        const int gi = i + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int gj = j + c;
+          const bool pad = gi >= a.n1 || gj >= a.n2;
+          if (a.square) {
+            const bool diag = gi == gj;
+            if (diag) v[c] = __fadd_rn(v[c], diag_add);
+            if (pad) v[c] = diag ? 1.0f : 0.0f;
+          } else if (pad) {
+            v[c] = 0.0f;
+          }
+        }
+      }
+      put(r, v);
+    }
   }
 }
 
@@ -199,7 +207,7 @@ __device__ __forceinline__ bool interior(const Args& a, int ti, int tj) {
          !(a.square && ti == tj);
 }
 
-template <int KIND, int DP4, int ST>
+template <int KIND, int DP4, bool V4>
 __global__ void __launch_bounds__(THREADS, 2) cov_tile_kernel(Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float sf2 = a.scal[0], diag_add = a.scal[1], alpha = a.scal[2];
@@ -210,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 2) cov_tile_kernel(Args a) {
     if (interior(a, ti, tj)) {
       tile<KIND, DP4, false>(a, i, j, sf2, diag_add, alpha,
                              [&](int r, const float (&v)[4]) {
-                               put4<ST>(row0 + r * a.ldo, v);
+                               put4<V4>(row0 + r * a.ldo, v);
                              });
     } else {
       tile<KIND, DP4, true>(a, i, j, sf2, diag_add, alpha,
@@ -218,69 +226,15 @@ __global__ void __launch_bounds__(THREADS, 2) cov_tile_kernel(Args a) {
                               if (i + r >= a.m) return;
                               float* p = row0 + r * a.ldo;
                               if (j + 3 < a.n) {
-                                put4<ST>(p, v);
+                                put4<V4>(p, v);
                               } else {
 #pragma unroll
                                 for (int c = 0; c < 4; ++c)
-                                  if (j + c < a.n) p[c] = v[c];
+                                  if (j + c < a.n) __stcs(p + c, v[c]);
                               }
                             });
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// TMA store route: each tile is built in one of two shared-memory buffers
-// and stored by one cp.async.bulk.tensor.2d, which clips the ragged edge;
-// the next tile is built while it drains.
-
-constexpr size_t TMA_SMEM = 2 * BM * BN * sizeof(float);
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const float* src, int col,
-                                          int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%1, %2}], [%3];\n" ::"l"(reinterpret_cast<unsigned long long>(
-          map)),
-      "r"(col), "r"(row),
-      "r"(static_cast<unsigned>(__cvta_generic_to_shared(src)))
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-template <int KIND, int DP4>
-__global__ void __launch_bounds__(THREADS, 1)
-cov_tile_tma(Args a, const __grid_constant__ CUtensorMap map) {
-  extern __shared__ __align__(128) float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float sf2 = a.scal[0], diag_add = a.scal[1], alpha = a.scal[2];
-  int it = 0;
-  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++it) {
-    const int ti = t / a.tiles_n, tj = t - ti * a.tiles_n;
-    const int i = ti * BM + RW * warp, j = tj * BN + 4 * lane;
-    float* buf = smem + (it & 1) * BM * BN;
-    if (it >= 2) {  // the store two tiles back has read this buffer
-      if (threadIdx.x == 0)
-        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      __syncthreads();
-    }
-    float* dst = buf + RW * warp * BN + 4 * lane;
-    auto put = [&](int r, const float (&v)[4]) {
-      *reinterpret_cast<float4*>(dst + r * BN) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    };
-    if (interior(a, ti, tj))
-      tile<KIND, DP4, false>(a, i, j, sf2, diag_add, alpha, put);
-    else
-      tile<KIND, DP4, true>(a, i, j, sf2, diag_add, alpha, put);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) tma_store(&map, buf, tj * BN, ti * BM);
-  }
-  if (threadIdx.x == 0)
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -303,24 +257,18 @@ cov_prep(const float* __restrict__ x1, const float* __restrict__ x2,
 // kernel), the latter computed once per device and kernel.
 
 template <auto KERN>
-cudaError_t resident_ctas(size_t smem, int* out) {
+cudaError_t resident_ctas(int* out) {
   static int cache[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (cache[dev] == 0) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(KERN,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERN,
-                                                        THREADS, smem);
+                                                        THREADS, 0);
     if (err != cudaSuccess) return err;
     if (per_sm <= 0) return cudaErrorInvalidConfiguration;
     cache[dev] = per_sm * sms;
@@ -332,7 +280,7 @@ cudaError_t resident_ctas(size_t smem, int* out) {
 template <auto KERN>
 cudaError_t launch_tiles(const Args& a, cudaStream_t s) {
   int cap = 0;
-  cudaError_t err = resident_ctas<KERN>(0, &cap);
+  cudaError_t err = resident_ctas<KERN>(&cap);
   if (err != cudaSuccess) return err;
   void* args[] = {const_cast<Args*>(&a)};
   return cudaLaunchKernel(reinterpret_cast<const void*>(KERN),
@@ -340,72 +288,17 @@ cudaError_t launch_tiles(const Args& a, cudaStream_t s) {
                           args, 0, s);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The (m, n) output as a TMA tensor map with BM x BN boxes. The driver's
-// encoder comes through the runtime (no -lcuda).
-cudaError_t encode_out(const Args& a, CUtensorMap* map) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.n),
-                              static_cast<cuuint64_t>(a.m)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.ldo) * 4};
-  const cuuint32_t box[2] = {BN, BM};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, a.out, dims, strides, box,
-      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int KIND, int DP4>
-cudaError_t launch_tma(const Args& a, cudaStream_t s) {
-  CUtensorMap map;
-  cudaError_t err = encode_out(a, &map);
-  if (err != cudaSuccess) return err;
-  int cap = 0;
-  err = resident_ctas<cov_tile_tma<KIND, DP4>>(TMA_SMEM, &cap);
-  if (err != cudaSuccess) return err;
-  void* args[] = {const_cast<Args*>(&a), &map};
-  return cudaLaunchKernel(
-      reinterpret_cast<const void*>(cov_tile_tma<KIND, DP4>),
-      dim3(a.tiles < cap ? a.tiles : cap), dim3(THREADS), args, TMA_SMEM, s);
-}
-
-template <int KIND, int DP4>
-cudaError_t launch_store(const Args& a, int store, cudaStream_t s) {
-  if (store == ST_SCALAR)
-    return launch_tiles<cov_tile_kernel<KIND, DP4, ST_SCALAR>>(a, s);
-  if (store == ST_V4)
-    return launch_tiles<cov_tile_kernel<KIND, DP4, ST_V4>>(a, s);
-  if constexpr (KIND == RBF && DP4 > 0) {  // the store-route A/B
-    if (store == ST_V4CS)
-      return launch_tiles<cov_tile_kernel<KIND, DP4, ST_V4CS>>(a, s);
-    if (store == ST_TMA) return launch_tma<KIND, DP4>(a, s);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t launch_dp(const Args& a, bool v4, cudaStream_t s) {
+  return v4 ? launch_tiles<cov_tile_kernel<KIND, DP4, true>>(a, s)
+            : launch_tiles<cov_tile_kernel<KIND, DP4, false>>(a, s);
 }
 
 template <int KIND>
-cudaError_t launch_kind(const Args& a, int store, cudaStream_t s) {
-  if (a.dp == 4) return launch_store<KIND, 1>(a, store, s);
-  if (a.dp == 8) return launch_store<KIND, 2>(a, store, s);
-  return launch_store<KIND, 0>(a, store, s);
+cudaError_t launch_kind(const Args& a, bool v4, cudaStream_t s) {
+  if (a.dp == 4) return launch_dp<KIND, 1>(a, v4, s);
+  if (a.dp == 8) return launch_dp<KIND, 2>(a, v4, s);
+  return launch_dp<KIND, 0>(a, v4, s);
 }
 
 struct Plan {
@@ -428,11 +321,11 @@ extern "C" const char* cugp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of the scratch cugp_cov takes (same: X2 is X1, one pre-pass);
+// Floats of the scratch cugp_cov takes (when X2 is X1 it uses less);
 // -1 past INT_MAX.
-extern "C" int cugp_cov_scratch(int m, int n, int d, int same) {
+extern "C" int cugp_cov_scratch(int m, int n, int d) {
   if (m <= 0 || n <= 0 || d <= 0) return 0;
-  const long long f = plan(m, n, d, same).floats;
+  const long long f = plan(m, n, d, 0).floats;
   return f > INT_MAX ? -1 : static_cast<int>(f);
 }
 
@@ -440,26 +333,26 @@ extern "C" int cugp_cov_scratch(int m, int n, int d, int same) {
 // lengthscale (x2 == x1 with m == n: one tensor, one pre-pass); scal =
 // [sf2, diag_add, alpha] on the device; out (m, n) with leading dimension
 // ldo; scratch: cugp_cov_scratch floats, 16-byte aligned. kind: 0 rbf,
-// 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. store: 0 4-byte
-// stores, 1 16-byte stores (ldo % 4 == 0, out 16-byte aligned), 2 16-byte
-// streaming stores, 3 TMA tile stores (2 and 3: rbf at d <= 8). Two
+// 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. v4: 16-byte stores
+// (ldo % 4 == 0 and out 16-byte aligned), else 4-byte stores. Two
 // launches: the pre-pass, then the tiles.
 extern "C" int cugp_cov(const float* x1, const float* x2, const float* scal,
                         float* out, float* scratch, int m, int n, int d,
                         long long ldo, int kind, int square, int n1_true,
-                        int n2_true, int store, void* stream) {
+                        int n2_true, int v4, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   const bool aligned = ldo % 4 == 0 &&
                        (reinterpret_cast<size_t>(out) & 15) == 0;
   if (d <= 0 || kind < RBF || kind > LINEAR || ldo < n ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0 ||
-      (store != ST_SCALAR && !aligned))
+      (v4 && !aligned))
     return cudaErrorInvalidValue;
   const int same = x1 == x2 && m == n;
   const Plan p = plan(m, n, d, same);
   const long long tiles_n = (n + BN - 1) / BN;
   const long long tiles = (m + BM - 1) / BM * tiles_n;
-  if (p.floats > INT_MAX || tiles > INT_MAX) return cudaErrorInvalidValue;
+  if (plan(m, n, d, 0).floats > INT_MAX || tiles > INT_MAX)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* xs1 = scratch;
   float* h1 = xs1 + static_cast<long long>(p.m_pad) * p.dp;
@@ -477,12 +370,12 @@ extern "C" int cugp_cov(const float* x1, const float* x2, const float* scal,
                n1_true, n2_true, square, static_cast<int>(tiles_n),
                static_cast<int>(tiles)};
   switch (kind) {
-    case RBF: err = launch_kind<RBF>(a, store, s); break;
-    case MATERN12: err = launch_kind<MATERN12>(a, store, s); break;
-    case MATERN32: err = launch_kind<MATERN32>(a, store, s); break;
-    case MATERN52: err = launch_kind<MATERN52>(a, store, s); break;
-    case RQ: err = launch_kind<RQ>(a, store, s); break;
-    default: err = launch_kind<LINEAR>(a, store, s); break;
+    case RBF: err = launch_kind<RBF>(a, v4, s); break;
+    case MATERN12: err = launch_kind<MATERN12>(a, v4, s); break;
+    case MATERN32: err = launch_kind<MATERN32>(a, v4, s); break;
+    case MATERN52: err = launch_kind<MATERN52>(a, v4, s); break;
+    case RQ: err = launch_kind<RQ>(a, v4, s); break;
+    default: err = launch_kind<LINEAR>(a, v4, s); break;
   }
   return static_cast<int>(err);
 }

@@ -1,12 +1,26 @@
 """Covariance tile — the CUDA kernel ``csrc/cov.cu`` and its twin.
 
 Replaces ``cugp_tpu/ops/cov_pallas.py::_cov_kernel``. On the H100 the build
-is bound by the N^2 fp32 store at d <= 32 (4.29 GB at N = 32768); the
-kernel writes 64x64 tiles whose warps store full 128-byte row segments,
-straight into an exactly m x n output (no padding, no crop copy).
+is bound by the m n fp32 store (4.29 GB at N = 32768). A call is two
+launches: a pre-pass writes the rows of X1 and X2 padded to 4 features (in
+log2 units for rbf) and their half squared norms into a scratch this
+wrapper allocates (one pass when X2 is X1); then persistent CTAs walk
+128x128 output tiles, a thread owning 16 rows x 4 adjacent columns, with
+masks only in tiles that meet the diagonal, the padding or the ragged
+edge. An rbf entry at d = 4 is 4 cross FMA, two subtractions, one ex2 and
+sf2 once, about 10 instructions with its share of loads and stores, a
+quarter of what the store time leaves, so the writes bind: the output
+goes out as 16-byte streaming stores (``route(ldo, ptr)`` is "16-byte")
+or, where its leading dimension or address does not allow them, as 4-byte
+ones; both write the same bits. Straight into an exactly m x n output (no
+padding, no crop copy); no atomics, and an entry's value does not depend
+on the shape, its tile or the route. Measured on an H100 80GB HBM3 at
+700 W (chip_smoke.py phase 2; PERF.md, PR 7): 1.42-1.45 ms at 32768^2,
+d = 8, against a 1.283 ms byte bound and 1.315 ms for ``out.fill_(1.0)``.
 
 ``cov_tile`` launches the kernel for CUDA tensors and runs ``cov_tile_plain``
-(the same formulas in torch ops) for CPU tensors. ``CovTile`` is the
+(the same formulas in torch ops) for CPU tensors; ``LAUNCHES`` counts its
+calls that launched (a pre-pass and the tiles each). ``CovTile`` is the
 autograd Function around it: forward launches the kernel, backward is the
 VJP of the plain tile function recomputed on the same inputs — the
 counterpart of the custom VJPs at ``cugp_tpu/ops/kernels.py:347-400``.
@@ -22,9 +36,6 @@ KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3,
               "rq": 4, "linear": 5}
 
 LAUNCHES = 0  # kernel launches by cov_tile (plain CPU calls do not count)
-TILE = 128  # rows and columns of an output tile of csrc/cov.cu
-# store routes of csrc/cov.cu; ".cs" and "TMA" are the A/B's alone
-STORES = {"4-byte": 0, "16-byte": 1, "16-byte .cs": 2, "TMA": 3}
 
 
 def kernel_fn_plain(d2, kind, alpha):
@@ -87,13 +98,12 @@ def route(ldo, ptr):
     return "16-byte" if ldo % 4 == 0 and ptr % 16 == 0 else "4-byte"
 
 
-def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true, out=None,
-             store=None):
+def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true, out=None):
     """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU.
 
     out: an (m, n) float32 tensor with unit column stride to write into
-    (any leading dimension), else a new one. store: a STORES name, else
-    route(out.stride(0), out.data_ptr()).
+    (any leading dimension; its stride and address pick the store route),
+    else a new one.
     """
     global LAUNCHES
     if kind not in KIND_CODES:
@@ -121,23 +131,21 @@ def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true, out=None,
     xs1, xs2, scal = xs1.contiguous(), xs2.contiguous(), scal.contiguous()
     if out is None:
         out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
-    if store is None:
-        store = route(out.stride(0), out.data_ptr())
+    v4 = route(out.stride(0), out.data_ptr()) == "16-byte"
     lib = _build.lib()
-    # X2 is X1 (a square build of one tensor): one pre-pass
-    same = int(xs1.data_ptr() == xs2.data_ptr() and m == n)
-    floats = lib.cugp_cov_scratch(m, n, d, same)
+    floats = lib.cugp_cov_scratch(m, n, d)
     if floats < 0:
         raise ValueError(f"cov_tile: m={m}, n={n}, d={d} needs a scratch "
                          "past 2^31 floats")
-    # padded rows and half-norms: 0.3 MB at 8000 x 8000, d = 4
+    # padded rows and half-norms: 0.3 MB at 8000 x 8000, d = 4 (half of
+    # it when xs2 is xs1: one pre-pass)
     scratch = torch.empty(floats, dtype=torch.float32, device=xs1.device)
     with torch.cuda.device(xs1.device):
         err = lib.cugp_cov(xs1.data_ptr(), xs2.data_ptr(), scal.data_ptr(),
                            out.data_ptr(), scratch.data_ptr(), m, n, d,
                            out.stride(0), KIND_CODES[kind], int(square),
                            min(int(n1_true), m), min(int(n2_true), n),
-                           STORES[store], _build.stream_of(xs1))
+                           int(v4), _build.stream_of(xs1))
     _build.check(err, "cov")
     LAUNCHES += 1
     return out

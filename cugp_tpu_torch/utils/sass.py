@@ -2,12 +2,14 @@
 
     python -m cugp_tpu_torch.utils.sass cov_matvec     # kernels matching
     python -m cugp_tpu_torch.utils.sass cov_matvec dump.txt  # a saved dump
+    python -m cugp_tpu_torch.utils.sass cov_tile --list  # and their code
 
 For every kernel whose (mangled) name contains the pattern, prints its
 instruction count by opcode and, for each loop (a branch back to an
 earlier address), the loop body's length and opcode mix, innermost
-first. Needs the CUDA toolkit's ``cuobjdump`` and a built library (it
-builds one if the sources have none).
+first; with --list, every instruction too. Needs the CUDA toolkit's
+``cuobjdump`` and a built library (it builds one if the sources have
+none).
 """
 
 from __future__ import annotations
@@ -82,6 +84,8 @@ def fmt(hist, top=14):
 
 
 def main(argv):
+    listing = "--list" in argv
+    argv = [a for a in argv if a != "--list"]
     pattern = argv[0] if argv else ""
     text = pathlib.Path(argv[1]).read_text() if len(argv) > 1 else None
     for name, insns in sorted(disassemble(text).items()):
@@ -92,6 +96,9 @@ def main(argv):
         for start, end, body in loops(insns):
             print(f"  loop 0x{start:x}-0x{end:x} len={len(body)}: "
                   f"{fmt(histogram(body))}")
+        if listing:
+            for addr, insn in insns:
+                print(f"  {addr:05x} {insn}")
     return 0
 
 

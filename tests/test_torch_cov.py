@@ -22,6 +22,7 @@ from tests.test_torch_ops import (COV_CASES, RTOL, assert_close, inputs,
 torch.set_num_threads(1)
 
 SQRT_LOG2E = 1.2011224087864498  # rbf rows are scaled by it (log2 units)
+TILE = 128  # the output tile edge fixed in csrc/cov.cu (rows and columns)
 
 
 def fmaf(a, b, c):
@@ -85,11 +86,12 @@ def cov_tile_model(xs1, xs2, scal, kind, square, n1_true, n2_true):
 @pytest.mark.parametrize("kind,d", [c for c in COV_CASES if c[1] in (3, 40)])
 def test_cov_tile_model(kind, d, square, monkeypatch):
     """The model through the port's covariance functions (periodic via its
-    rbf view, composites as products and sums of its tiles) against the Pallas kernel in interpret mode and against
-    cov_tile_plain: n = 300 (ragged against 128-row tiles), a square build
-    with an identity block past n_true = 280, a 300 x 170 cross build with
-    rows past 290 masked. rtol 1e-5, atol 1e-6, plus the matern12 slack
-    near coincident points."""
+    rbf view, composites as products and sums of its tiles) against the
+    Pallas kernel in interpret mode and against cov_tile_plain: n = 300
+    (ragged against 128-row tiles), a square build with an identity block
+    past n_true = 280, a 300 x 170 cross build with rows past 290 masked.
+    rtol 1e-5, atol 1e-6, plus the matern12 slack near coincident
+    points."""
     P = np_params(kind, d, seed=50 + d)
     X = inputs(300, d, seed=51 + d)
     p = params_from_numpy(P, "cpu")
@@ -130,7 +132,7 @@ def tile_schedule(m, n, square, n1, n2, grid_cap):
     takes tiles c, c + G, ... in row-major tile order; a tile is interior
     when it is clear of the diagonal (square), of n1/n2 and of the
     ragged edge. Returns (tile visits, entry writes, interior flags)."""
-    T = cov_cuda.TILE
+    T = TILE
     tiles_n = -(-n // T)
     tiles = -(-m // T) * tiles_n
     grid = min(tiles, grid_cap)
@@ -158,7 +160,7 @@ def test_cov_tile_schedule(m, n, square, grid_cap):
     n2 = n1 if square else n
     visits, writes, interior = tile_schedule(m, n, square, n1, n2, grid_cap)
     assert (visits == 1).all() and (writes == 1).all()
-    T, tiles_n = cov_cuda.TILE, -(-n // cov_cuda.TILE)
+    T, tiles_n = TILE, -(-n // TILE)
     for t in np.flatnonzero(interior):
         ti, tj = divmod(t, tiles_n)
         rows = np.arange(ti * T, (ti + 1) * T)[:, None]
