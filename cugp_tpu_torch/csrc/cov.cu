@@ -44,8 +44,8 @@
 // No atomics: a launch is bitwise reproducible, and an entry's value does
 // not depend on m, n, its tile or the store route, so a row block built
 // alone equals the same rows of a larger build. Measured on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py phase 2; PERF.md, PR 7): 1.42-1.45 ms at
-// 32768^2, d = 8, against a 1.283 ms byte bound and 1.315 ms for
+// HBM3 at 700 W (chip_smoke.py phase 2; PERF.md): 1.39-1.40 ms at
+// 32768^2, d = 8, against a 1.283 ms byte bound and 1.31 ms for
 // out.fill_(1.0) on the same output: the write rate bounds it.
 
 #include <climits>

@@ -15,8 +15,8 @@ or, where its leading dimension or address does not allow them, as 4-byte
 ones; both write the same bits. Straight into an exactly m x n output (no
 padding, no crop copy); no atomics, and an entry's value does not depend
 on the shape, its tile or the route. Measured on an H100 80GB HBM3 at
-700 W (chip_smoke.py phase 2; PERF.md, PR 7): 1.42-1.45 ms at 32768^2,
-d = 8, against a 1.283 ms byte bound and 1.315 ms for ``out.fill_(1.0)``.
+700 W (chip_smoke.py phase 2; PERF.md): 1.39-1.40 ms at 32768^2,
+d = 8, against a 1.283 ms byte bound and 1.31 ms for ``out.fill_(1.0)``.
 
 ``cov_tile`` launches the kernel for CUDA tensors and runs ``cov_tile_plain``
 (the same formulas in torch ops) for CPU tensors; ``LAUNCHES`` counts its
