@@ -12,13 +12,14 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      spills of every kernel, a line each;
   2. kernels against their plain PyTorch versions on the card, at the
      shapes of the main paths: covariance tile (all kinds, square and
-     cross, ragged 1000x777, d = 1, 4, 8, 40, repeats and both store
-     routes bitwise, the rbf diagonal exactly sf2 + diag_add, a row block
-     built alone bitwise equal to the same rows of a larger build; timed
-     at the four main-path shapes beside fill_ms, out.fill_(1.0) on an
-     output of the same size), potrf (the grid it takes,
-     small and ragged n, in place, batches and repeats bitwise, NaN on a
-     non-PD block, a time per base-block size), TRSM (both routes,
+     cross, ragged 1000x777, d = 1, 4, 8, 40, against the plain version
+     in fp32 and in float64, repeats and both store routes bitwise, the
+     rbf diagonal exactly sf2 + diag_add, a row block built alone
+     bitwise equal to the same rows of a larger build; timed at the four
+     main-path shapes beside fill_ms, out.fill_(1.0) on an output of the
+     same size), potrf (the grid it takes, small and ragged n, in place,
+     batches and repeats bitwise, NaN on a non-PD block, a time per
+     base-block size), TRSM (both routes,
      ragged n, k across the narrow/wide threshold, both sides, a stale
      upper triangle, an odd leading dimension, strided in place, repeats
      and slab widths bitwise) and the fused covariance matvec (all kinds
@@ -189,9 +190,11 @@ COV_TIMED = ((8000, 8000, 4, True), (32768, 32768, 8, True),
              (4096, 100_000, 4, False), (100_000, 128, 4, False))
 
 
-def _cov_bound(m, n, d):
-    """X1 and X2 read once, K written once; 2d + 3 flops an entry."""
-    return bound(4 * (m * d + n * d + m * n), m * n * (2 * d + 3))
+def _cov_bound(m, n, d, square):
+    """X1 and X2 read once (one tensor when square), K written once;
+    2d + 3 flops an entry."""
+    return bound(4 * (m * d + (0 if square else n * d) + m * n),
+                 m * n * (2 * d + 3))
 
 
 def phase_cov(torch, dev, results):
@@ -220,28 +223,30 @@ def phase_cov(torch, dev, results):
         _, *vs = kernels.periodic_rbf_view(p, *xs)
         return ("rbf", *vs)
 
+    def route(k):
+        return cov_cuda.route(k.stride(0), k.data_ptr())
+
     def check(tag, xs1, xs2, kind, square, n1, n2, diag_add):
-        """The kernel against the plain version, a repeat bitwise, and
-        the other store route bitwise (an output of leading dimension
-        n + 1 takes the 4-byte route)."""
+        """The kernel against the plain version and against the plain
+        version in float64 on the same inputs (the witness), and a repeat
+        bitwise. The fp32 plain version strays from the witness where its
+        exponent cross - s1/2 - s2/2 cancels (about eps s sf2 on the
+        diagonal of the periodic view at d = 40, where a row's s is about
+        160): that stray is allowed on top of rtol and atol in the
+        comparison with it, not in the one with the witness. Returns the
+        two max abs errors and the build."""
         nonlocal worst
         s = scal(diag_add, kind)
         got = cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2)
         want = cov_cuda.cov_tile_plain(xs1, xs2, s, kind, square, n1, n2)
+        exact = cov_cuda.cov_tile_plain(xs1.double(), xs2.double(),
+                                        s.double(), kind, square, n1, n2)
         again = cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2)
-        m, n = got.shape
-        other = torch.empty(m, n + 1, device=dev)[:, :n]
-        cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2, out=other)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"cov {tag}: shape {tuple(got.shape)} or non-finite")
         if not torch.equal(got, again):
             fail(f"cov {tag}: two launches differ")
-        routes = (cov_cuda.route(got.stride(0), got.data_ptr()),
-                  cov_cuda.route(other.stride(0), other.data_ptr()))
-        if routes[1] != "4-byte" or not torch.equal(got, other):
-            fail(f"cov {tag}: the {routes[0]} and {routes[1]} store "
-                 "routes differ")
         tol = atol
         if kind == "matern12":
             # exp(-r) has slope -1 at r = 0, and r = sqrt(d2) turns the
@@ -253,11 +258,19 @@ def phase_cov(torch, dev, results):
             d2 = (s12 - 2.0 * xs1 @ xs2.T).clamp(min=0.0)
             slack = s[0] * torch.sqrt(8 * 1.1920929e-07 * s12)
             tol = torch.where(d2 < 1e-2, slack, 0.0) + atol
-        ok, err, rel = _close(got, want, rtol, tol)
+        ok_x, err_x, _ = _close(got.double(), exact, rtol, tol)
+        if not ok_x:
+            fail(f"cov {tag}: max abs err {err_x:.3e} against float64 over "
+                 f"rtol=atol={rtol}")
+        stray = (want.double() - exact).abs()
+        ok, err, _ = _close(got, want, rtol, tol + stray)
         worst = max(worst, err)
         if not ok:
-            fail(f"cov {tag}: max abs err {err:.3e} over rtol=atol={rtol}")
-        return f"{err:.3e}/{rel:.3e}", routes[0]
+            fail(f"cov {tag}: max abs err {err:.3e} over rtol=atol={rtol} "
+                 "plus the plain version's own error "
+                 f"({float(stray.max()):.3e})")
+        del want, exact, again
+        return f"{err:.3e}/{err_x:.3e}", got
 
     X = uniform(8000, 4)
     Xc = uniform(2000, 4)
@@ -266,23 +279,35 @@ def phase_cov(torch, dev, results):
     Xr, Xr2 = uniform(1000, 4), uniform(777, 4)
     for kind in COV_KINDS:
         base, xs, xc = view(kind, X, Xc)
-        e_sq, r_sq = check(f"{kind} square 8000", xs, xs, base, True, 7900,
+        e_sq, k_sq = check(f"{kind} square 8000", xs, xs, base, True, 7900,
                            7900, 0.1)
-        e_x, r_x = check(f"{kind} cross 8000x2000", xs, xc, base, False,
+        e_x, k_x = check(f"{kind} cross 8000x2000", xs, xc, base, False,
                          7950, 2000, 0.0)
+        routes = [route(k_sq), route(k_x)]
+        del k_sq, k_x
         errs = []
-        for d, Xd in ((1, X1), (8, X8), (40, X40)):  # periodic: rbf here
-            errs.append(check(f"{kind} square 2000 d={d}", Xd, Xd, base,
+        for d, Xd in ((1, X1), (8, X8), (40, X40)):
+            base, xd = view(kind, Xd)
+            errs.append(check(f"{kind} square 2000 d={d}", xd, xd, base,
                               True, 1990, 1990, 0.1)[0])
+        # the two store routes on the same entries: the 1000 x 777 build
+        # (4-byte) against the first 777 columns of a 1000 x 780 build of
+        # X2 padded by 3 rows past n2_true (16-byte)
         base, xr, xr2 = view(kind, Xr, Xr2)
-        e_r, r_r = check(f"{kind} cross 1000x777", xr, xr2, base, False,
-                         1000, 777, 0.0)
-        if r_r != "4-byte":
-            fail(f"cov {kind} cross 1000x777: took the {r_r} route")
-        say("cov", kind=kind, abs_rel_err_square=e_sq, abs_rel_err_cross=e_x,
-            abs_rel_err_d1_d8_d40=",".join(errs),
-            abs_rel_err_cross_1000x777=e_r,
-            routes=f"{r_sq},{r_x},{r_r}", repeat_and_routes_bitwise=True)
+        e_r, narrow = check(f"{kind} cross 1000x777", xr, xr2, base, False,
+                            1000, 777, 0.0)
+        wide = cov_cuda.cov_tile(xr, torch.cat([xr2, xr2[:3]]),
+                                 scal(0.0, base), base, False, 1000, 777)
+        routes += [route(narrow), route(wide)]
+        if routes[2:] != ["4-byte", "16-byte"]:
+            fail(f"cov {kind} cross 1000x777: took the routes {routes[2:]}")
+        if not torch.equal(narrow, wide[:, :777]):
+            fail(f"cov {kind} cross 1000x777: the 4-byte and 16-byte store "
+                 "routes differ")
+        say("cov", kind=kind, err_plain_f64_square=e_sq,
+            err_plain_f64_cross=e_x, err_plain_f64_d1_d8_d40=",".join(errs),
+            err_plain_f64_cross_1000x777=e_r, routes=",".join(routes),
+            repeats_and_routes_bitwise=True)
 
     # the rbf diagonal is sf2 + diag_add exactly (exponent 0), and rows
     # [4096, 8192) of a 10,000-row build are those rows built alone, as
@@ -339,7 +364,7 @@ def time_cov(torch, dev):
         del fill
         plain_ms = cuda_ms(lambda: cov_cuda.cov_tile_plain(
             X1, X2, s, "rbf", square, m, n), iters=2, warmup=1)
-        b_ms, b_by = _cov_bound(m, n, d)
+        b_ms, b_by = _cov_bound(m, n, d, square)
         tag = f"{m}x{n} d={d}"
         row = {"ms": ms, "fill_ms": fill_ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}

@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "cov_rows.cuh"
+#include "device_facts.cuh"
 
 using namespace cugp;
 
@@ -65,7 +66,6 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;  // 8
 constexpr int RW = BM / WARPS;       // 16 rows a warp, and a thread
 constexpr int ROW_PAD = BM;          // scratch rows padded to this
-constexpr int MAX_DEVICES = 64;
 
 struct Args {
   const float* x1;  // (m_pad, dp) padded rows of X1
@@ -77,10 +77,6 @@ struct Args {
   long long ldo;
   int m, n, dp, n1, n2, square, tiles_n, tiles;
 };
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
 
 // One output: rbf applies sf2 here (entry() gives K / sf2)
 template <int KIND>
@@ -254,33 +250,12 @@ cov_prep(const float* __restrict__ x1, const float* __restrict__ x2,
 
 // ---------------------------------------------------------------------------
 // Launchers. The persistent grid is min(tiles, SMs x resident CTAs of the
-// kernel), the latter computed once per device and kernel.
-
-template <auto KERN>
-cudaError_t resident_ctas(int* out) {
-  static int cache[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERN,
-                                                        THREADS, 0);
-    if (err != cudaSuccess) return err;
-    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
-    cache[dev] = per_sm * sms;
-  }
-  *out = cache[dev];
-  return cudaSuccess;
-}
+// kernel).
 
 template <auto KERN>
 cudaError_t launch_tiles(const Args& a, cudaStream_t s) {
   int cap = 0;
-  cudaError_t err = resident_ctas<KERN>(&cap);
+  cudaError_t err = resident_ctas<KERN, THREADS, 0>(&cap);
   if (err != cudaSuccess) return err;
   void* args[] = {const_cast<Args*>(&a)};
   return cudaLaunchKernel(reinterpret_cast<const void*>(KERN),
@@ -333,20 +308,19 @@ extern "C" int cugp_cov_scratch(int m, int n, int d) {
 // lengthscale (x2 == x1 with m == n: one tensor, one pre-pass); scal =
 // [sf2, diag_add, alpha] on the device; out (m, n) with leading dimension
 // ldo; scratch: cugp_cov_scratch floats, 16-byte aligned. kind: 0 rbf,
-// 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. v4: 16-byte stores
-// (ldo % 4 == 0 and out 16-byte aligned), else 4-byte stores. Two
-// launches: the pre-pass, then the tiles.
+// 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. The stores are
+// 16-byte ones where ldo % 4 == 0 and out is 16-byte aligned, else 4-byte
+// ones (cov_cuda.route names the rule). Two launches: the pre-pass, then
+// the tiles.
 extern "C" int cugp_cov(const float* x1, const float* x2, const float* scal,
                         float* out, float* scratch, int m, int n, int d,
                         long long ldo, int kind, int square, int n1_true,
-                        int n2_true, int v4, void* stream) {
+                        int n2_true, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  const bool aligned = ldo % 4 == 0 &&
-                       (reinterpret_cast<size_t>(out) & 15) == 0;
   if (d <= 0 || kind < RBF || kind > LINEAR || ldo < n ||
-      (reinterpret_cast<size_t>(scratch) & 15) != 0 ||
-      (v4 && !aligned))
+      (reinterpret_cast<size_t>(scratch) & 15) != 0)
     return cudaErrorInvalidValue;
+  const bool v4 = ldo % 4 == 0 && (reinterpret_cast<size_t>(out) & 15) == 0;
   const int same = x1 == x2 && m == n;
   const Plan p = plan(m, n, d, same);
   const long long tiles_n = (n + BN - 1) / BN;

@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "cov_rows.cuh"
+#include "device_facts.cuh"
 
 using namespace cugp;
 
@@ -473,8 +474,6 @@ cov_matvec_wide(Scratch g, const float* __restrict__ scal,
 // Launchers. The dynamic shared-memory ceiling is raised once per device
 // and kernel, to what the widest chunk (DC features) needs.
 
-constexpr int MAX_DEVICES = 64;
-
 struct Plan {
   int narrow;  // 1: narrow route, 0: wide
   int rc;      // narrow: V columns a CTA holds
@@ -505,23 +504,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Kernel>
-cudaError_t raise_smem_once(bool (&done)[MAX_DEVICES], Kernel kern,
-                            size_t bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 size_t narrow_smem(int rc, int dch) {
   const int ring = STAGES * NBN * (dch + 1 + narrow_vstride(rc));
   const int red = THREADS * (rc | 1);
@@ -535,9 +517,8 @@ size_t wide_smem(int dch) {
 
 template <int KIND, int RC>
 cudaError_t launch_narrow(const Args& a) {
-  static bool done[MAX_DEVICES] = {};
-  cudaError_t err = raise_smem_once(done, cov_matvec_narrow<KIND, RC>,
-                                    narrow_smem(RC, DC));
+  cudaError_t err =
+      raise_smem_once<cov_matvec_narrow<KIND, RC>>(narrow_smem(RC, DC));
   if (err != cudaSuccess) return err;
   const int bm = 32 * narrow_rows(RC);
   const int dch = a.dp < DC ? a.dp : DC;
@@ -549,8 +530,7 @@ cudaError_t launch_narrow(const Args& a) {
 
 template <int KIND>
 cudaError_t launch_wide(const Args& a) {
-  static bool done[MAX_DEVICES] = {};
-  cudaError_t err = raise_smem_once(done, cov_matvec_wide<KIND>, wide_smem(DC));
+  cudaError_t err = raise_smem_once<cov_matvec_wide<KIND>>(wide_smem(DC));
   if (err != cudaSuccess) return err;
   const int dch = a.dp < DC ? a.dp : DC;
   const dim3 grid(a.npad / WBM, a.rp / WVW);

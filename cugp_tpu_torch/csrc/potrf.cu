@@ -46,6 +46,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "device_facts.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -301,34 +303,14 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
   }
 }
 
-// Co-resident CTAs of the kernel on the current device, computed once.
-cudaError_t max_ctas(int* out) {
-  static int cache[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, potrf_kernel, THREADS, SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
-    cache[dev] = per_sm * sms;
-  }
-  *out = cache[dev];
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // The grid the launcher takes for an (n, n) block: min(co-resident CTAs,
 // trailing tiles of step 0), at least 1.
 extern "C" int cugp_potrf_grid(int n, int* grid) {
   int cap = 0;
-  cudaError_t err = max_ctas(&cap);
+  cudaError_t err =
+      cugp::resident_ctas<potrf_kernel, THREADS, SMEM_BYTES>(&cap);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int m = (n + T - 1) / T - 1;
   const int tiles = m * (m + 1) / 2;

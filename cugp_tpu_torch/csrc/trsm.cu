@@ -62,6 +62,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_facts.cuh"
+
 namespace {
 
 constexpr int T = 64;                        // tile edge and panel height
@@ -471,8 +473,6 @@ trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
 // Launchers. The dynamic shared-memory ceiling is raised once per device
 // and kernel, at the size n = MAXN needs.
 
-constexpr int MAX_DEVICES = 64;
-
 struct Args {
   const float* l;
   long long ldl;
@@ -482,22 +482,6 @@ struct Args {
   int n, k, vec;
   cudaStream_t stream;
 };
-
-template <typename Kernel>
-cudaError_t raise_smem_once(bool (&done)[MAX_DEVICES], Kernel kern,
-                            size_t bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
 
 size_t narrow_smem(int n) {
   const int np = (n + T - 1) / T * T;
@@ -513,9 +497,8 @@ size_t wide_smem(int w, int n) {
 
 template <bool TR>
 cudaError_t launch_narrow(const Args& a) {
-  static bool done[MAX_DEVICES] = {};
-  cudaError_t err = raise_smem_once(done, trsm_narrow_kernel<TR>,
-                                    narrow_smem(MAXN));
+  cudaError_t err =
+      cugp::raise_smem_once<trsm_narrow_kernel<TR>>(narrow_smem(MAXN));
   if (err != cudaSuccess) return err;
   trsm_narrow_kernel<TR><<<a.k, NARROW_THREADS, narrow_smem(a.n), a.stream>>>(
       a.l, a.ldl, a.winv, a.b, a.rs, a.cs, a.n, a.vec);
@@ -524,9 +507,8 @@ cudaError_t launch_narrow(const Args& a) {
 
 template <int W, bool TR>
 cudaError_t launch_wide(const Args& a) {
-  static bool done[MAX_DEVICES] = {};
-  cudaError_t err = raise_smem_once(done, trsm_wide_kernel<W, TR>,
-                                    wide_smem(W, MAXN));
+  cudaError_t err =
+      cugp::raise_smem_once<trsm_wide_kernel<W, TR>>(wide_smem(W, MAXN));
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((a.k + W - 1) / W);
   trsm_wide_kernel<W, TR><<<grid, wide_threads(W), wide_smem(W, a.n),
@@ -535,27 +517,11 @@ cudaError_t launch_wide(const Args& a) {
   return cudaGetLastError();
 }
 
-// SMs of the current device, read once.
-cudaError_t sm_count(int* out) {
-  static int cache[MAX_DEVICES] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    err = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return err;
-  }
-  *out = cache[dev];
-  return cudaSuccess;
-}
-
 // The widest slab whose CTAs still cover the SMs (all but 1/32 of them).
 template <bool TR>
 cudaError_t launch_wide_for(const Args& a) {
   int sms = 0;
-  cudaError_t err = sm_count(&sms);
+  cudaError_t err = cugp::sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int need = sms - sms / 32;
   if ((a.k + 31) / 32 >= need) return launch_wide<32, TR>(a);

@@ -34,9 +34,8 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of csrc/*.cu (every launcher returns its cudaError_t)
 _SIGNATURES = {
     # x1, x2, scal, out, scratch, m, n, d, ldo, kind, square, n1_true,
-    # n2_true, v4, stream
-    "cugp_cov": [_p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i,
-                 _p],
+    # n2_true, stream
+    "cugp_cov": [_p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],
     # m, n, d: floats of the scratch cugp_cov takes (-1: too many)
     "cugp_cov_scratch": [_i, _i, _i],
     # a, lda, batch_stride, n, batch, stream

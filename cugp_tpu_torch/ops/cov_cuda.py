@@ -92,46 +92,32 @@ def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
 
 
 def route(ldo, ptr):
-    """The kernel's store route for an output with leading dimension ldo
-    at address ptr: "16-byte" where ldo % 4 == 0 and ptr is 16-byte
-    aligned, else "4-byte". Both routes write the same values."""
+    """The store route the kernel takes for an output with leading
+    dimension ldo at address ptr (cugp_cov's rule): "16-byte" where
+    ldo % 4 == 0 and ptr is 16-byte aligned, else "4-byte". Both routes
+    write the same values."""
     return "16-byte" if ldo % 4 == 0 and ptr % 16 == 0 else "4-byte"
 
 
-def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true, out=None):
-    """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU.
-
-    out: an (m, n) float32 tensor with unit column stride to write into
-    (any leading dimension; its stride and address pick the store route),
-    else a new one.
-    """
+def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true):
+    """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU."""
     global LAUNCHES
     if kind not in KIND_CODES:
         raise ValueError(f"cov_tile takes base families {tuple(KIND_CODES)}"
                          f" (periodic via the rbf view), got {kind!r}")
-    m, d = xs1.shape
-    n, d2 = xs2.shape
-    if out is not None and (out.shape != (m, n) or out.dtype != torch.float32
-                            or out.device != xs1.device
-                            or out.stride(1) != 1):
-        raise ValueError(f"cov_tile: out must be ({m}, {n}) float32 on "
-                         f"{xs1.device} with unit column stride, got "
-                         f"{tuple(out.shape)} {out.dtype} on {out.device}, "
-                         f"strides {out.stride()}")
     if xs1.device.type != "cuda":
-        k = cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true)
-        return k if out is None else out.copy_(k)
+        return cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true)
     for name, t in (("xs1", xs1), ("xs2", xs2), ("scal", scal)):
         if t.dtype != torch.float32 or t.device != xs1.device:
             raise ValueError(f"cov_tile: {name} must be float32 on "
                              f"{xs1.device}, got {t.dtype} on {t.device}")
+    m, d = xs1.shape
+    n, d2 = xs2.shape
     if d2 != d or scal.numel() != 3:
         raise ValueError(f"cov_tile: shapes {tuple(xs1.shape)}, "
                          f"{tuple(xs2.shape)}, scal {tuple(scal.shape)}")
     xs1, xs2, scal = xs1.contiguous(), xs2.contiguous(), scal.contiguous()
-    if out is None:
-        out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
-    v4 = route(out.stride(0), out.data_ptr()) == "16-byte"
+    out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
     lib = _build.lib()
     floats = lib.cugp_cov_scratch(m, n, d)
     if floats < 0:
@@ -145,7 +131,7 @@ def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true, out=None):
                            out.data_ptr(), scratch.data_ptr(), m, n, d,
                            out.stride(0), KIND_CODES[kind], int(square),
                            min(int(n1_true), m), min(int(n2_true), n),
-                           int(v4), _build.stream_of(xs1))
+                           _build.stream_of(xs1))
     _build.check(err, "cov")
     LAUNCHES += 1
     return out

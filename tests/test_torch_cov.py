@@ -82,16 +82,44 @@ def cov_tile_model(xs1, xs2, scal, kind, square, n1_true, n2_true):
     return torch.where(pad, 0.0, k)
 
 
+def periodic_f64(P, X1, X2, square, n_true):
+    """The periodic family in float64 numpy, with the diagonal and padding
+    contract: the witness both fp32 builds are measured against."""
+    ell = np.exp(np.float64(P["log_lengthscale"]))
+    per = np.exp(np.float64(P["log_period"]))
+    sf2 = np.exp(np.float64(P["log_signal_var"]))
+    diff = np.float64(X1)[:, None, :] - np.float64(X2)[None, :, :]
+    k = sf2 * np.exp(-2.0 * (np.sin(np.pi * diff / per) ** 2
+                             / ell ** 2).sum(-1))
+    if not square:
+        k[n_true:] = 0.0
+        return k
+    k += np.eye(len(X1)) * (np.exp(np.float64(P["log_noise_var"]))
+                            + 1e-6 * sf2)
+    k[n_true:], k[:, n_true:] = 0.0, 0.0
+    k[n_true:, n_true:] = np.eye(len(X1) - n_true)
+    return k
+
+
+# the model at every width of COV_CASES, and the periodic view at d = 40
+# (80 features, a view row's s about 170: the widest rbf exponent)
+MODEL_CASES = [c for c in COV_CASES if c[1] in (3, 40)] + [("periodic", 40)]
+
+
 @pytest.mark.parametrize("square", [True, False])
-@pytest.mark.parametrize("kind,d", [c for c in COV_CASES if c[1] in (3, 40)])
+@pytest.mark.parametrize("kind,d", MODEL_CASES)
 def test_cov_tile_model(kind, d, square, monkeypatch):
     """The model through the port's covariance functions (periodic via its
     rbf view, composites as products and sums of its tiles) against the
     Pallas kernel in interpret mode and against cov_tile_plain: n = 300
     (ragged against 128-row tiles), a square build with an identity block
     past n_true = 280, a 300 x 170 cross build with rows past 290 masked.
-    rtol 1e-5, atol 1e-6, plus the matern12 slack near coincident
-    points."""
+    rtol 1e-5, atol 1e-6, plus the matern12 slack near coincident points.
+    Periodic at d = 40 is also held against float64 at rtol 1e-5, atol
+    1e-6: there both fp32 references stray from it by about eps s sf2 on
+    the diagonal (their exponent cross - s1/2 - s2/2 cancels; the model's
+    is exactly 0), so that stray is allowed on top in the comparisons
+    with them."""
     P = np_params(kind, d, seed=50 + d)
     X = inputs(300, d, seed=51 + d)
     p = params_from_numpy(P, "cpu")
@@ -117,8 +145,15 @@ def test_cov_tile_model(kind, d, square, monkeypatch):
     monkeypatch.setattr(cov_cuda, "cov_tile_plain", cov_tile_model)
     got = build("auto")
     tol = matern12_slack(kind, X, X2, P)
-    assert_close(got, np.asarray(want_pallas), rtol=RTOL, atol=tol)
-    assert_close(got, want_plain.numpy(), rtol=RTOL, atol=tol)
+    want_pallas, want_plain = np.asarray(want_pallas), want_plain.numpy()
+    tol_pallas = tol_plain = tol
+    if kind == "periodic" and d == 40:
+        exact = periodic_f64(P, X, X2, square, 280 if square else 290)
+        assert_close(got, exact, rtol=RTOL, atol=tol)
+        tol_pallas = tol + np.abs(want_pallas - exact)
+        tol_plain = tol + np.abs(want_plain - exact)
+    assert_close(got, want_pallas, rtol=RTOL, atol=tol_pallas)
+    assert_close(got, want_plain, rtol=RTOL, atol=tol_plain)
     if square and kind in ("rbf", "periodic"):
         # K_ii = sf2 + diag_add bitwise (the exponent is 0)
         diag_add = (torch.exp(p["log_noise_var"])
@@ -127,48 +162,53 @@ def test_cov_tile_model(kind, d, square, monkeypatch):
         assert torch.equal(torch.diagonal(got)[:280], want.expand(280))
 
 
-def tile_schedule(m, n, square, n1, n2, grid_cap):
+def tile_schedule(m, n, grid_cap):
     """csrc/cov.cu's persistent schedule: CTA c of min(tiles, grid_cap)
-    takes tiles c, c + G, ... in row-major tile order; a tile is interior
-    when it is clear of the diagonal (square), of n1/n2 and of the
-    ragged edge. Returns (tile visits, entry writes, interior flags)."""
+    takes tiles c, c + G, ... in row-major tile order. Returns the visits
+    of each tile and the writes of each entry."""
     T = TILE
     tiles_n = -(-n // T)
     tiles = -(-m // T) * tiles_n
     grid = min(tiles, grid_cap)
     visits = np.zeros(tiles, int)
     writes = np.zeros((m, n), int)
-    interior = np.zeros(tiles, bool)
     for c in range(grid):
         for t in range(c, tiles, grid):
             ti, tj = divmod(t, tiles_n)
             visits[t] += 1
-            interior[t] = ((ti + 1) * T <= n1 and (tj + 1) * T <= n2
-                           and not (square and ti == tj))
             writes[ti * T:(ti + 1) * T, tj * T:(tj + 1) * T] += 1
-    return visits, writes, interior
+    return visits, writes
+
+
+def interior(ti, tj, square, n1, n2):
+    """csrc/cov.cu's interior(): the tile takes the path without masks."""
+    return ((ti + 1) * TILE <= n1 and (tj + 1) * TILE <= n2
+            and not (square and ti == tj))
 
 
 @pytest.mark.parametrize("m,n,square,grid_cap", [
     (300, 300, True, 5), (1000, 777, False, 264), (4096, 1000, False, 132),
-    (129, 129, True, 396), (1, 1, True, 264), (100, 1000, False, 1)])
+    (129, 129, True, 396), (1, 1, True, 264), (100, 1000, False, 1),
+    (512, 512, True, 132)])
 def test_cov_tile_schedule(m, n, square, grid_cap):
     """For ragged (m, n) and any grid, every tile is visited once and every
-    entry written once; an interior tile (no masks) holds no diagonal
-    entry, no padding and no entry past the edge."""
+    entry written once; and the tiles that take the path without masks
+    are exactly those whose 128 x 128 entries, laid out in full, hold no
+    diagonal entry, no padding and none past the edge."""
     n1 = max(m - 3, 1)  # rows (and, square, columns) past n1 are padding
     n2 = n1 if square else n
-    visits, writes, interior = tile_schedule(m, n, square, n1, n2, grid_cap)
+    visits, writes = tile_schedule(m, n, grid_cap)
     assert (visits == 1).all() and (writes == 1).all()
-    T, tiles_n = TILE, -(-n // TILE)
-    for t in np.flatnonzero(interior):
-        ti, tj = divmod(t, tiles_n)
-        rows = np.arange(ti * T, (ti + 1) * T)[:, None]
-        cols = np.arange(tj * T, (tj + 1) * T)[None, :]
-        assert (rows < n1).all() and (cols < n2).all()
-        assert not (square and (rows == cols).any())
-    assert interior.sum() == (n1 // T) * (n2 // T) - (
-        min(n1, n2) // T if square else 0)
+    T = TILE
+    rows = np.arange(-(-m // T) * T)[:, None]
+    cols = np.arange(-(-n // T) * T)[None, :]
+    masked = (rows >= n1) | (cols >= n2) | (rows >= m) | (cols >= n)
+    if square:
+        masked |= rows == cols
+    for ti in range(-(-m // T)):
+        for tj in range(-(-n // T)):
+            clean = not masked[ti * T:(ti + 1) * T, tj * T:(tj + 1) * T].any()
+            assert interior(ti, tj, square, n1, n2) == clean, (ti, tj)
 
 
 @pytest.mark.parametrize("ldo,ptr,want", [
@@ -178,24 +218,3 @@ def test_cov_tile_schedule(m, n, square, grid_cap):
 def test_cov_store_route(ldo, ptr, want):
     """16-byte stores need ldo % 4 == 0 and a 16-byte aligned output."""
     assert cov_cuda.route(ldo, ptr) == want
-
-
-def test_cov_tile_into_a_view():
-    """cov_tile(out=) writes the tile into a strided view and nothing
-    around it; a view of the wrong shape raises."""
-    rng = np.random.default_rng(3)
-    xs1 = torch.tensor(rng.standard_normal((20, 3)), dtype=torch.float32)
-    xs2 = torch.tensor(rng.standard_normal((9, 3)), dtype=torch.float32)
-    scal = torch.tensor([1.3, 0.0, 1.0])
-    buf = torch.full((22, 12), 7.0)
-    got = cov_cuda.cov_tile(xs1, xs2, scal, "rbf", False, 18, 9,
-                            out=buf[1:21, 2:11])
-    want = cov_cuda.cov_tile_plain(xs1, xs2, scal, "rbf", False, 18, 9)
-    assert got.data_ptr() == buf[1:21, 2:11].data_ptr()
-    assert torch.equal(buf[1:21, 2:11], want)
-    rest = buf.clone()
-    rest[1:21, 2:11] = 7.0
-    assert torch.equal(rest, torch.full((22, 12), 7.0))
-    with pytest.raises(ValueError, match="out must be"):
-        cov_cuda.cov_tile(xs1, xs2, scal, "rbf", False, 20, 9,
-                          out=torch.empty(20, 8))
