@@ -30,8 +30,8 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      that computes the same function;
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
-     checked against a float64 scipy posterior, with each kernel's launch
-     counter read around the run;
+     checked against the float64 oracle (the port's copy), with each
+     kernel's launch counter read around the run;
   4. north-star shape: covariance + Cholesky at N=32768, d=8, gated on
      the reconstruction error of the first 4096 rows;
   5. matrix-free path at N=100,000, d=4: GP.fit_iterative (3 steps after
@@ -39,10 +39,18 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      mean solve's residual recomputed without the kernel) and
      log_marginal_likelihood_iterative, launch counters read around
      them; then, on the first 16,384 rows, the iterative posterior and
-     LML against the dense path.
+     LML against the dense path;
+  6. the rest of the dense GP surface at config 2: GP(basis="linear")
+     fit/predict/full_cov, GP.loo, fit(optimizer="lbfgs"),
+     fit(restarts=3), the multi-output LML and posterior (8 outputs),
+     analytic LML gradients against autograd (rbf, rq, periodic),
+     sample_posterior (64 draws at 2000 points) and save/load, each
+     gated against the float64 oracle or its own reference, launch
+     counters read around them.
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
-Cholesky at N=32768 (phase 4) and one fit step at N=100,000 (phase 5).
+Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), and
+one L-BFGS step and one loo() at config 2 (phase 6).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -785,31 +793,6 @@ def _trsm_bound(n, k):
     return bound(4 * (n * (n + 1) // 2 + 2 * n * k), n ** 2 * k)
 
 
-def _posterior64(params, X, y, Xs, jitter=1e-6):
-    """Float64 scipy rbf posterior and LML at the given (numpy) params."""
-    from scipy import linalg as sla
-
-    ell = np.exp(np.asarray(params["log_lengthscale"], np.float64))
-    sf2 = float(np.exp(params["log_signal_var"]))
-    sn2 = float(np.exp(params["log_noise_var"]))
-
-    def k(a, b):
-        a, b = a / ell, b / ell
-        d2 = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2 * a @ b.T
-        return sf2 * np.exp(-0.5 * np.maximum(d2, 0.0))
-
-    K = k(X, X) + (sn2 + jitter * sf2) * np.eye(len(X))
-    cf = sla.cho_factor(K, lower=True)
-    alpha = sla.cho_solve(cf, y)
-    Ks = k(X, Xs)
-    mu = Ks.T @ alpha
-    v = sla.solve_triangular(cf[0], Ks, lower=True)
-    var = np.maximum(sf2 - (v * v).sum(0), 0.0)
-    lml = (-0.5 * y @ alpha - np.log(np.diag(cf[0])).sum()
-           - 0.5 * len(y) * np.log(2 * np.pi))
-    return mu, var, lml
-
-
 def _wrappers():
     from cugp_tpu_torch.ops import (chol_cuda, cov_cuda, cov_matvec_cuda,
                                     trsm_cuda)
@@ -830,6 +813,7 @@ def read_launches():
 def phase_main(torch, dev, profile=False):
     import cugp_tpu_torch
     from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.oracle import exact_gp_np as oracle
     from cugp_tpu_torch.utils.params import params_to_numpy
 
     X, y, _ = synthetic.multidim_regression(n=8000, d=4, seed=0)
@@ -859,7 +843,8 @@ def phase_main(torch, dev, profile=False):
     if mu.shape != (2000,) or var.shape != (2000,):
         fail(f"main path: predict shapes {mu.shape} {var.shape}")
     p64 = params_to_numpy(gp.params)
-    mu64, var64, lml64 = _posterior64(p64, X, y, Xs)
+    mu64, var64 = oracle.posterior(p64, X, y, Xs)
+    lml64 = oracle.log_marginal_likelihood(p64, X, y)
     err_mu = float(np.abs(mu - mu64).max())
     err_var = float(np.abs(var - var64).max())
     err_lml = abs(lml - lml64) / len(y)
@@ -1066,6 +1051,245 @@ def phase_matrix_free(torch, dev, profile=False, n=100_000, n_acc=16384):
     return launches
 
 
+def phase_dense_api(torch, dev, profile=False, n=8000, n_test=2000,
+                    n_cov=256, p=8):
+    """The dense GP surface beyond fit/predict at config 2 (N=8000, d=4):
+    explicit basis, LOO, L-BFGS, restarts, multi-output, analytic
+    gradients, posterior draws, save/load. Every entry point is timed by
+    the host clock around synchronized work (after one warm-up fit) and
+    gated; the float64 oracle (the port's copy, on the host) times
+    itself, and the phase its whole wall. All gates are checked before
+    the phase fails. profile: one L-BFGS step and one loo() under
+    torch.profiler."""
+    import tempfile
+
+    import cugp_tpu_torch
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.models import exact_gp
+    from cugp_tpu_torch.ops import kernels
+    from cugp_tpu_torch.oracle import exact_gp_np as oracle
+    from cugp_tpu_torch.utils.params import params_to_numpy
+
+    X, y, _ = synthetic.multidim_regression(n=n, d=4, seed=0)
+    Xs = np.random.default_rng(1).uniform(-2.0, 2.0, (n_test, 4))
+    Xt = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    X32 = Xt.cpu().numpy().astype(np.float64)
+    y32 = yt.cpu().numpy().astype(np.float64)
+    Xs32 = np.asarray(Xs, np.float32).astype(np.float64)
+    failures, oracle_s = [], [0.0]
+
+    def gate(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def oracle_call(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        oracle_s[0] += time.perf_counter() - t0
+        return out
+
+    def err(a, b):
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+        return float(np.abs(np.asarray(a, np.float64) - b).max())
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    cugp_tpu_torch.GP(kind="rbf", basis="linear", device=dev).fit(X, y,
+                                                                  steps=1)
+
+    # explicit linear basis: fit, predict (diagonal and full_cov), LML
+    gp_b = cugp_tpu_torch.GP(kind="rbf", basis="linear", device=dev)
+    info, t_fit = timed(lambda: gp_b.fit(X, y, steps=5))
+    (mu, var), t_pred = timed(lambda: gp_b.predict(Xs))
+    (mu_f, cov), t_full = timed(lambda: gp_b.predict(Xs[:n_cov],
+                                                     full_cov=True))
+    lml = float(gp_b.log_marginal_likelihood())
+    p64 = params_to_numpy(gp_b.params)
+    mu64, var64, beta64 = oracle_call(oracle.posterior_basis, p64, X32, y32,
+                                      Xs32, basis="linear")
+    muf64, cov64, _ = oracle_call(oracle.posterior_basis_full_cov, p64, X32,
+                                  y32, Xs32[:n_cov], basis="linear")
+    lml64 = oracle_call(oracle.log_marginal_likelihood_basis, p64, X32, y32,
+                        basis="linear")
+    e = {"mu": err(mu, mu64), "var": err(var, var64),
+         "full_mu": err(mu_f, muf64), "full_cov": err(cov, cov64),
+         "beta": err(gp_b.beta, beta64), "lml_per_point": abs(lml - lml64) / n}
+    say("api", entry="basis", n=n, fit_s_per_step=f"{t_fit / 5:.4f}",
+        predict_s=f"{t_pred:.4f}", full_cov_s=f"{t_full:.4f}",
+        full_cov_points=n_cov, lml=f"{lml:.4f}", lml64=f"{lml64:.4f}",
+        **{f"err_{k}": f"{v:.3e}" for k, v in e.items()})
+    gate(all(v <= 1e-3 for v in e.values()),
+         "basis: posterior/LML off float64 by more than 1e-3")
+    gate(np.isfinite(info["loss"].cpu().numpy()).all(),
+         "basis: non-finite loss")
+    params = gp_b.params
+
+    # LOO from one factorization (identity solve: TRSM at k = n)
+    gp0 = cugp_tpu_torch.GP(kind="rbf", device=dev).condition(X, y,
+                                                              params=params)
+    r, t_loo = timed(gp0.loo)
+    mu_o, var_o, logp_o = oracle_call(oracle.loo_cv, p64, X32, y32)
+    e_mu, e_logp = err(r["mean"], mu_o), err(r["logp"], logp_o)
+    e_var = float(np.max(np.abs(r["var"].cpu().numpy() - var_o) / var_o))
+    say("api", entry="loo", loo_s=f"{t_loo:.4f}", err_mean=f"{e_mu:.3e}",
+        rel_err_var=f"{e_var:.3e}", err_logp=f"{e_logp:.3e}",
+        pseudo_likelihood=f"{float(r['pseudo_likelihood']):.4f}")
+    gate(e_mu <= 2e-3 and e_var <= 2e-3 and e_logp <= 5e-3,
+         "loo: off float64 beyond tests/test_loo.py's bars")
+
+    # L-BFGS (optax.lbfgs's zoom line search)
+    gp_l = cugp_tpu_torch.GP(kind="rbf", device=dev)
+    info, t_lbfgs = timed(lambda: gp_l.fit(X, y, steps=10,
+                                           optimizer="lbfgs"))
+    loss = info["loss"].cpu().numpy()
+    trials = info["linesearch_steps"]
+    mu_l, var_l = gp_l.predict(Xs)
+    mu64, var64 = oracle_call(oracle.posterior, params_to_numpy(gp_l.params),
+                              X32, y32, Xs32)
+    e_mu, e_var = err(mu_l, mu64), err(var_l, var64)
+    say("api", entry="lbfgs", steps=10, s_per_step=f"{t_lbfgs / 10:.4f}",
+        evals_per_step=f"{1 + trials.mean():.2f}",
+        linesearch_trials=",".join(map(str, trials.tolist())),
+        loss_first=f"{loss[0]:.4f}", loss_last=f"{loss[-1]:.4f}",
+        max_rise=f"{np.diff(loss).max():.3e}", err_mu=f"{e_mu:.3e}",
+        err_var=f"{e_var:.3e}")
+    gate(np.isfinite(loss).all() and (np.diff(loss) <= 0).all(),
+         f"lbfgs: loss trace not finite and non-increasing: {loss.tolist()}")
+    gate(e_mu <= 1e-3 and e_var <= 1e-3,
+         "lbfgs: posterior off float64 by more than 1e-3")
+
+    # restarts (a loop of Adam fits; start 0 is the init exactly)
+    gp_r = cugp_tpu_torch.GP(kind="rbf", device=dev)
+    info, t_rst = timed(lambda: gp_r.fit(
+        X, y, steps=10, restarts=3,
+        generator=torch.Generator().manual_seed(0)))
+    lmls = info["restart_lmls"].cpu().numpy()
+    plain = cugp_tpu_torch.GP(kind="rbf", device=dev).fit(X, y, steps=10)
+    rel0 = abs(lmls[0] - float(plain["lml"])) / abs(float(plain["lml"]))
+    say("api", entry="restarts", restarts=3, steps=10,
+        s_per_step=f"{t_rst / 30:.4f}",
+        restart_lmls=",".join(f"{v:.4f}" for v in lmls),
+        best_restart=info["best_restart"], rel_err_start0=f"{rel0:.3e}")
+    gate(info["best_restart"] == int(np.argmax(lmls))
+         and float(info["lml"]) == float(lmls.max()),
+         "restarts: best_restart does not hold the least final loss")
+    gate(rel0 <= 1e-6, "restarts: start 0 differs from a plain fit")
+
+    # multi-output: one factor, p right-hand sides (TRSM at k = p), at
+    # the default hyperparameters. A mean is a sum of n terms K*_ij alpha_i
+    # that cancel; the multi and single paths sum them in other orders
+    # (GEMM against GEMV), so their gap is held relative to sum |terms|.
+    pm = kernels.default_init("rbf", d=4, device=dev)
+    Y = torch.stack([yt + 0.1 * j * torch.cos(Xt[:, j % 4])
+                     for j in range(p)], dim=1)
+    Xst = torch.as_tensor(Xs, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        lml_m, t_lm = timed(lambda: exact_gp.log_marginal_likelihood_multi(
+            pm, Xt, Y))
+        (mu_m, var_m), t_pm = timed(lambda: exact_gp.posterior_multi(
+            pm, Xt, Y, Xst))
+        singles = [exact_gp.posterior(pm, Xt, Y[:, j], Xst)
+                   for j in range(p)]
+        lml_s = sum(float(exact_gp.log_marginal_likelihood(pm, Xt, Y[:, j]))
+                    for j in range(p))
+        L, alpha = exact_gp._factorize(pm, Xt, Y, "rbf", 1e-6, "auto")
+        terms = kernels.cross_covariance(pm, Xt, Xst).abs().mT @ alpha.abs()
+    rel_lml = abs(float(lml_m) - lml_s) / abs(lml_s)
+    gaps = torch.stack([(mu_m[:, j] - m).abs() for j, (m, _) in
+                        enumerate(singles)], dim=1)
+    e_mu, e_scaled = float(gaps.max()), float((gaps / terms).max())
+    e_var = float((var_m - singles[0][1]).abs().max())
+    mu64, _ = oracle_call(oracle.posterior, params_to_numpy(pm), X32,
+                          Y[:, p - 1].double().cpu().numpy(), Xs32)
+    e64 = err(mu_m[:, p - 1], mu64)
+    say("api", entry="multi_output", p=p, lml_s=f"{t_lm:.4f}",
+        posterior_s=f"{t_pm:.4f}", rel_err_lml=f"{rel_lml:.3e}",
+        err_mu=f"{e_mu:.3e}", err_mu_over_sum_abs_terms=f"{e_scaled:.3e}",
+        err_var=f"{e_var:.3e}", err_mu_last_vs_float64=f"{e64:.3e}")
+    gate(rel_lml <= 1e-5 and e_scaled <= 1e-5 and e_var <= 1e-5
+         and e64 <= 1e-3, "multi-output: off the single-output path")
+
+    # analytic LML gradients against autograd
+    for kind in ("rbf", "rq", "periodic"):
+        pk = kernels.default_init(kind, d=4, device=dev)
+        g_an, t_an = timed(lambda: exact_gp.lml_gradients_analytic(
+            pk, Xt, yt, kind=kind))
+        (_, g_ad), t_ad = timed(lambda: exact_gp.lml_value_and_grad(
+            pk, Xt, yt, kind=kind))
+        rel = max(float(((g_an[k] - g_ad[k]).abs()
+                         / g_ad[k].abs()).max()) for k in g_ad)
+        say("api", entry="analytic_gradients", kind=kind,
+            analytic_s=f"{t_an:.4f}", autograd_s=f"{t_ad:.4f}",
+            max_rel_err=f"{rel:.3e}")
+        gate(rel <= 1e-3, f"analytic gradients ({kind}) off autograd")
+        del g_an, g_ad
+    torch.cuda.empty_cache()
+
+    # posterior draws (full covariance, jitter ladder, potrf base blocks);
+    # zero-mean, as the JAX GP draws them whatever its basis
+    draws, t_draw = timed(lambda: gp0.sample_posterior(
+        Xs, num_samples=64, generator=torch.Generator().manual_seed(0)))
+    mu_d, var_d = (a.cpu().numpy() for a in gp0.predict(Xs))
+    draws = draws.cpu().numpy()
+    sd = np.sqrt(var_d + 1e-6)
+    z = np.abs(draws.mean(axis=0) - mu_d) / (5.0 * sd / np.sqrt(64) + 1e-3)
+    ratio = draws.var(axis=0) / (var_d + 1e-6)
+    say("api", entry="sample_posterior", points=n_test, draws=64,
+        s=f"{t_draw:.4f}", max_mean_over_bound=f"{z.max():.3f}",
+        var_ratio_min=f"{ratio.min():.3f}",
+        var_ratio_max=f"{ratio.max():.3f}")
+    gate(draws.shape == (64, n_test) and np.isfinite(draws).all()
+         and z.max() <= 1.0 and ((ratio > 0.3) & (ratio < 3.0)).all(),
+         "sample_posterior: draws outside tests/test_api.py's bounds")
+
+    # save/load: the loaded model predicts bitwise as before
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gp")
+        _, t_save = timed(lambda: gp_b.save(path))
+        back, t_load = timed(lambda: cugp_tpu_torch.GP.load(path,
+                                                            device=dev))
+        before, after = gp_b.predict(Xs), back.predict(Xs)
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    say("api", entry="save_load", save_s=f"{t_save:.4f}",
+        load_s=f"{t_load:.4f}", bitwise=same,
+        device=str(back.X.device))
+    gate(same, "save/load: predictions changed")
+    gate(back.X.is_cuda, "save/load: the loaded model is not on the card")
+
+    launches = read_launches()
+    say("api", wall_s=f"{time.perf_counter() - t_phase:.3f}",
+        oracle_s=f"{oracle_s[0]:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    for name in ("cov", "potrf", "trsm"):
+        gate(launches[name] > 0, f"dense API: the {name} kernel was never "
+             "launched")
+    # the basis factor's sizes (m_b = 1 for "constant", d + 1 for
+    # "linear"), which phase 2 does not reach, against the plain version
+    from cugp_tpu_torch.ops import chol_cuda
+
+    for m in range(1, 6):
+        A = _spd(torch, m, dev, seed=m)
+        got = chol_cuda.potrf_(A.clone())
+        e = float((got.tril() - chol_cuda.potrf_plain(A)).abs().max())
+        say("api", entry="potrf_basis_size", n=m, max_abs_err=f"{e:.3e}")
+        gate(e <= 1e-5, f"potrf at n={m} off its plain version")
+    if failures:
+        fail("dense API: " + "; ".join(failures))
+    if profile:
+        profile_device(torch, "profile_api_lbfgs", lambda: cugp_tpu_torch.GP(
+            kind="rbf", device=dev).fit(X, y, steps=1, optimizer="lbfgs"))
+        profile_device(torch, "profile_api_loo", gp0.loo)
+    return launches
+
+
 def profile_device(torch, tag, fn):
     """fn() under torch.profiler: device time by kernel, and the host
     wall around it (its idle share is 1 - busy / wall)."""
@@ -1115,7 +1339,8 @@ def main(argv):
     except ImportError as e:
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
-    phases = {int(v) for v in opts.get("--phases", "0,1,2,3,4,5").split(",")}
+    phases = {int(v) for v in
+              opts.get("--phases", "0,1,2,3,4,5,6").split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
@@ -1132,7 +1357,10 @@ def main(argv):
     if 5 in phases:
         paths["matrix_free"] = phase_matrix_free(
             torch, dev, profile="--profile" in opts)
-    if phases != {0, 1, 2, 3, 4, 5}:
+    if 6 in phases:
+        paths["dense_api"] = phase_dense_api(torch, dev,
+                                             profile="--profile" in opts)
+    if phases != {0, 1, 2, 3, 4, 5, 6}:
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

@@ -1,10 +1,11 @@
 """cugp_tpu_torch — the exact-GP engine on PyTorch and CUDA (NVIDIA H100).
 
 A port of ``cugp_tpu`` (the JAX/Pallas reference, which stays beside it):
-the dense exact-GP main path — covariance build, recursive blocked
-Cholesky, triangular solves, LML and its gradient, MAP (Adam) fit and
-posterior predict — and the matrix-free CG/SLQ tier for N beyond the
-dense ceiling. The four Pallas kernels are CUDA C++ kernels for
+the dense exact-GP path — covariance build, recursive blocked Cholesky,
+triangular solves, LML and its gradient, MAP fit (Adam or L-BFGS, with
+restarts, priors, the LOO or basis objectives) and posterior predict,
+LOO, posterior draws, save/load — and the matrix-free CG/SLQ tier for N
+beyond the dense ceiling. The four Pallas kernels are CUDA C++ kernels for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` on first use
 (``ops/_build.py``). CPU tensors take each kernel's plain PyTorch version.
 

@@ -1,5 +1,5 @@
 """User-facing API facade, as ``cugp_tpu/api.py``'s ``GP`` (dense and
-matrix-free parts).
+matrix-free parts, persistence).
 
 ``GP`` runs where its ``device`` says, "cuda" unless the caller asks for
 the CPU: data, hyperparameters and every kernel launch live there. There
@@ -20,13 +20,30 @@ from cugp_tpu_torch.models import exact_gp
 from cugp_tpu_torch.ops import kernels as kernel_ops
 from cugp_tpu_torch.utils.params import tree_map
 
-_NOT_PORTED = "not ported yet; see ROADMAP.md, slice 1"
-
 
 def _as_f32(a, device):
     if isinstance(a, torch.Tensor):
         return a.detach().to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _tree_struct(p):
+    """JSON-serializable shape of a params tree (leaves -> None), saved
+    beside the arrays so that load can rebuild the tree for any kernel,
+    composite terms/factors included."""
+    if isinstance(p, dict):
+        return {k: _tree_struct(v) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return [_tree_struct(v) for v in p]
+    return None
+
+
+def _probe_from_struct(s):
+    if isinstance(s, dict):
+        return {k: _probe_from_struct(v) for k, v in s.items()}
+    if isinstance(s, list):
+        return [_probe_from_struct(v) for v in s]
+    return np.zeros(())
 
 
 @dataclasses.dataclass
@@ -38,6 +55,9 @@ class GP:
     jitter: diagonal jitter (times signal variance) for PD safety.
     method: 'auto' | 'pallas' — the CUDA kernels for a CUDA device, their
         plain versions on the CPU.
+    basis: None | 'constant' | 'linear' — explicit basis functions with
+        marginalized coefficients (GPML 2.7).
+    normalize_y: standardize targets internally.
     device: where data, hyperparameters and computation live ("cuda" by
         default; "cpu" runs the kernels' plain versions).
     """
@@ -57,8 +77,8 @@ class GP:
     def __post_init__(self):
         kernel_ops.validate_kind(self.kind)
         kernel_ops.check_method(self.method)
-        if self.basis is not None:
-            raise NotImplementedError(f"basis={self.basis!r} is {_NOT_PORTED}")
+        if self.basis not in (None, "constant", "linear"):
+            raise ValueError(f"unknown basis {self.basis!r}")
         self.device = torch.device(self.device)
 
     def _data(self, X, y):
@@ -94,23 +114,32 @@ class GP:
         return tree_map(lambda v: _as_f32(v, self.device), params)
 
     def fit(self, X, y, *, steps=200, optimizer="adam", learning_rate=0.05,
-            init=None, key=None, log_prior=None, objective="lml",
+            init=None, generator=None, log_prior=None, objective="lml",
             restarts=1):
-        """MAP hyperparameter fit by maximizing the LML with Adam
-        (inference/map_opt). Returns the info dict ("loss", "lml")."""
+        """MAP hyperparameter fit by maximizing the LML (inference/map_opt)
+        with Adam or L-BFGS ("lbfgs"); with log_prior (callable params ->
+        scalar) the log posterior (map_opt.weak_log_prior matches the
+        samplers' default prior); objective="loo" maximizes the
+        leave-one-out pseudo-likelihood instead (see loo()). restarts > 1:
+        map_opt.fit_restarts from starts perturbed with draws from
+        `generator`; the best final objective wins. Returns the info dict
+        ("loss", "lml", ...)."""
         from cugp_tpu_torch.inference import map_opt
 
-        if restarts > 1:
-            raise NotImplementedError(f"restarts > 1 is {_NOT_PORTED}")
         X, y = self._data(X, y)
         if init is None:
             init = kernel_ops.default_init(self.kind, d=X.shape[1],
                                            device=self.device)
-        params, info = map_opt.fit(
-            self._params(init), X, y, kind=self.kind, jitter=self.jitter,
-            method=self.method, steps=steps, optimizer=optimizer,
-            learning_rate=learning_rate, basis=self.basis,
-            log_prior=log_prior, objective=objective)
+        kw = dict(kind=self.kind, jitter=self.jitter, method=self.method,
+                  steps=steps, optimizer=optimizer,
+                  learning_rate=learning_rate, basis=self.basis,
+                  log_prior=log_prior, objective=objective)
+        if restarts > 1:
+            params, info = map_opt.fit_restarts(
+                self._params(init), X, y, restarts=restarts,
+                generator=generator, **kw)
+        else:
+            params, info = map_opt.fit(self._params(init), X, y, **kw)
         self.params, self.X, self.y = params, X, y
         return info
 
@@ -127,22 +156,61 @@ class GP:
     @torch.no_grad()
     def log_marginal_likelihood(self, params=None):
         p = self._params(params) if params is not None else self.params
-        lml = exact_gp.log_marginal_likelihood(
+        if self.basis is not None:
+            lml = exact_gp.log_marginal_likelihood_basis(
+                p, self.X, self.y, kind=self.kind, jitter=self.jitter,
+                method=self.method, basis=self.basis)
+        else:
+            lml = exact_gp.log_marginal_likelihood(
+                p, self.X, self.y, kind=self.kind, jitter=self.jitter,
+                method=self.method)
+        return self._out_lml(lml)
+
+    @torch.no_grad()
+    def loo(self, params=None):
+        """Leave-one-out cross-validation at the training points from ONE
+        factorization (GPML section 5.4.2; exact_gp.loo_cv), no refits.
+        Returns a dict with the per-point predictive "mean"/"var" (of the
+        noisy observation, in y units), per-point "logp", and the scalar
+        "pseudo_likelihood" = sum(logp). fit(objective="loo") maximizes
+        it."""
+        if self.basis is not None:
+            raise NotImplementedError(
+                "loo() is defined for the zero-mean model (basis=None)")
+        p = self._params(params) if params is not None else self.params
+        mu, var, logp = exact_gp.loo_cv(
             p, self.X, self.y, kind=self.kind, jitter=self.jitter,
             method=self.method)
-        return self._out_lml(lml)
+        if self.normalize_y:
+            logp = logp - math.log(self.y_std)
+        return {"mean": self._out_mean(mu), "var": self._out_var(var),
+                "logp": logp, "pseudo_likelihood": torch.sum(logp)}
 
     @torch.no_grad()
     def predict(self, Xs, *, include_noise=False, full_cov=False,
                 batch=4096):
         """Posterior mean/variance at Xs, in test batches of `batch` rows
-        against one factorization (full_cov: the full covariance)."""
+        against one factorization (full_cov: the full covariance). With a
+        basis the semiparametric corrections apply (one batch) and the
+        fitted coefficients land in self.beta."""
         Xs = _as_f32(Xs, self.device)
+        if full_cov and include_noise:
+            raise ValueError("full_cov returns the latent posterior "
+                             "covariance; include_noise applies to the "
+                             "diagonal path only")
+        if self.basis is not None:
+            if full_cov:
+                mu, cov, self.beta = exact_gp.posterior_basis_full_cov(
+                    self.params, self.X, self.y, Xs, kind=self.kind,
+                    jitter=self.jitter, method=self.method,
+                    basis=self.basis)
+                return self._out_mean(mu), self._out_var(cov)
+            mu, var, self.beta = exact_gp.posterior_basis(
+                self.params, self.X, self.y, Xs, kind=self.kind,
+                jitter=self.jitter, method=self.method, basis=self.basis,
+                include_noise=include_noise)
+            return self._out_mean(mu), self._out_var(var)
         if full_cov:
-            if include_noise:
-                raise ValueError("full_cov returns the latent posterior "
-                                 "covariance; include_noise applies to "
-                                 "the diagonal path only")
             mu, cov = exact_gp.posterior_full_cov(
                 self.params, self.X, self.y, Xs, kind=self.kind,
                 jitter=self.jitter, method=self.method)
@@ -159,6 +227,97 @@ class GP:
             vars_.append(var)
         return (self._out_mean(torch.cat(mus)),
                 self._out_var(torch.cat(vars_)))
+
+    @torch.no_grad()
+    def sample_posterior(self, Xs, num_samples=8, generator=None,
+                         jitter=1e-6, draws=None):
+        """Function draws (num_samples, m) from the posterior at Xs:
+        f = mu + L_s eps, L_s the Cholesky factor of the full posterior
+        covariance (use a moderate m). eps: `draws`, an explicit
+        (m, num_samples) standard-normal tensor, or else drawn from
+        `generator` (a CPU generator seeded 0 by default)."""
+        Xs = _as_f32(Xs, self.device)
+        mu, cov = exact_gp.posterior_full_cov(
+            self.params, self.X, self.y, Xs, kind=self.kind,
+            jitter=self.jitter, method=self.method)
+        m = cov.shape[0]
+        # the fp32 posterior covariance can be numerically indefinite:
+        # scale the jitter by its diagonal and climb the jitter ladder
+        scale = torch.clamp(torch.mean(torch.diagonal(cov)), min=1e-12)
+        eye = torch.eye(m, dtype=cov.dtype, device=cov.device)
+        Ls = exact_gp.safe_cholesky(
+            cov + jitter * scale * eye, scale, method=self.method,
+            max_attempts=3, jitter0=max(jitter, 1e-6))
+        if draws is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            eps = torch.randn((m, num_samples), generator=generator,
+                              device=generator.device).to(self.device)
+        else:
+            eps = _as_f32(draws, self.device)
+            if tuple(eps.shape) != (m, num_samples):
+                raise ValueError(f"draws must be ({m}, {num_samples}), got "
+                                 f"{tuple(eps.shape)}")
+        return self._out_mean(mu[None, :] + (Ls @ eps).T)
+
+    def save(self, path):
+        """Persist hyperparameters and conditioning data
+        (utils.checkpoint); the directory loads in either package."""
+        from cugp_tpu_torch.utils import checkpoint
+
+        checkpoint.save(path, {"params": self.params, "X": self.X,
+                               "y": self.y},
+                        extra_json={"kind": self.kind, "jitter": self.jitter,
+                                    "method": self.method,
+                                    "basis": self.basis,
+                                    "normalize_y": self.normalize_y,
+                                    "y_mean": self.y_mean,
+                                    "y_std": self.y_std,
+                                    "param_keys": sorted(self.params),
+                                    "param_struct": _tree_struct(
+                                        self.params)})
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """Restore a GP saved with save() by either package, with its
+        tensors on `device`.
+
+        The params tree is rebuilt from the saved structure (or, for
+        checkpoints that predate it, from the saved key names). The JAX
+        package's XLA routes ("xla", "blocked") load as "auto".
+        """
+        from cugp_tpu_torch.utils import checkpoint
+
+        meta0 = checkpoint.peek_meta(path)
+        if meta0 is None:
+            raise FileNotFoundError(path)
+        extra = meta0.get("extra", {})
+        struct = extra.get("param_struct")
+        if struct is not None:
+            pprobe = _probe_from_struct(struct)
+        else:
+            keys = extra.get("param_keys")
+            if keys is None:
+                keys = ["log_lengthscale", "log_noise_var", "log_signal_var"]
+                if meta0.get("num_leaves") == 6:
+                    keys.append("log_alpha")
+            pprobe = {k: np.zeros(()) for k in keys}
+        probe = {"params": pprobe, "X": np.zeros((1, 1)), "y": np.zeros(1)}
+        tree, meta = checkpoint.restore(path, probe)
+        if tree is None:
+            raise FileNotFoundError(path)
+        extra = meta["extra"]
+        method = extra["method"]
+        gp = cls(kind=extra["kind"], jitter=extra["jitter"],
+                 method=method if method in ("auto", "pallas") else "auto",
+                 basis=extra.get("basis"), device=device)
+        # condition with normalize_y off: the saved y is already
+        # standardized; the recorded stats are restored afterwards
+        gp.condition(tree["X"], tree["y"], params=tree["params"])
+        gp.normalize_y = extra.get("normalize_y", False)
+        gp.y_mean = extra.get("y_mean", 0.0)
+        gp.y_std = extra.get("y_std", 1.0)
+        return gp
 
     def fit_iterative(self, X, y, *, steps=50, learning_rate=0.05,
                       init=None, generator=None, log_prior=None, **kw):

@@ -1,7 +1,8 @@
 """Synthetic regression datasets, as ``cugp_tpu/data/synthetic.py``.
 
-NumPy copies of the config-1 and config-2 generators: the same seed gives
-the same arrays bit for bit as the JAX package's.
+NumPy copies of the config-1 and config-2 generators, the known-GP draw
+and the padding helper: the same seed gives the same arrays bit for bit
+as the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,3 +28,41 @@ def multidim_regression(n=8000, d=4, noise_std=0.2, seed=0):
     f = np.sin(X @ w * 2.0) + 0.3 * np.cos(1.5 * X[:, 0]) + 0.2 * (X**2 @ w)
     y = f + noise_std * rng.standard_normal(n)
     return X.astype(np.float64), y.astype(np.float64), f.astype(np.float64)
+
+
+def gp_draw(n=512, d=2, lengthscale=0.7, signal_var=1.5, noise_var=0.05,
+            seed=0, kind="rbf"):
+    """Data drawn from a GP with KNOWN hyperparameters (recovery tests);
+    the covariance is the port's copy of the float64 oracle's."""
+    from cugp_tpu_torch.oracle import exact_gp_np as oracle
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(n, d))
+    params = {
+        "log_lengthscale": np.full((d,), np.log(lengthscale)),
+        "log_signal_var": np.log(signal_var),
+        "log_noise_var": np.log(noise_var),
+    }
+    K = oracle.kernel_matrix(params, X, X, kind) + 1e-10 * np.eye(n)
+    Lf = np.linalg.cholesky(K)
+    f = Lf @ rng.standard_normal(n)
+    y = f + np.sqrt(noise_var) * rng.standard_normal(n)
+    return X, y, params
+
+
+def pad_dataset(X, y, n_padded):
+    """Zero-pad (X, y) rows up to n_padded.
+
+    Pass the TRUE row count to the model as ``n_true`` (e.g.
+    ``exact_gp.log_marginal_likelihood(..., n_true=len(y_orig))``): the
+    covariance builders then write an identity block beyond it, so the
+    padded system's Cholesky, LML and posterior equal the unpadded ones.
+    """
+    n, d = X.shape
+    if n_padded < n:
+        raise ValueError(f"n_padded={n_padded} is below the {n} rows")
+    Xp = np.zeros((n_padded, d), dtype=X.dtype)
+    yp = np.zeros((n_padded,), dtype=y.dtype)
+    Xp[:n] = X
+    yp[:n] = y
+    return Xp, yp

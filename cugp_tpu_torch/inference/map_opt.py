@@ -1,38 +1,57 @@
 """MAP hyperparameter optimization, as ``cugp_tpu/inference/map_opt.py``.
 
-``fit`` (dense): the JAX package runs Adam as one jitted ``lax.scan``;
-here it is a Python loop over ``torch.optim.Adam`` on leaf tensors
-(b1=0.9, b2=0.999, eps=1e-8 outside the root: the same update as
-``optax.adam``). As with ``optax.apply_if_finite``, a step whose gradient
-is not finite is skipped and leaves the optimizer state untouched.
-``fit_iterative`` (matrix-free): the same Adam over the Hutchinson
-gradient estimator, without the finite check (plain ``optax.adam`` in
-the JAX package). Every iterate is clamped into the box of ``_BOUNDS``.
+``fit`` (dense): the JAX package runs the optimizer as one jitted
+``lax.scan``; here it is a Python loop. Adam is ``torch.optim.Adam`` on
+leaf tensors (b1=0.9, b2=0.999, eps=1e-8 outside the root: the same
+update as ``optax.adam``); as with ``optax.apply_if_finite``, a step whose
+gradient is not finite is skipped and leaves the optimizer state
+untouched. L-BFGS is ``inference/_lbfgs`` (``optax.lbfgs`` with the same
+defaults) on the flattened leaves. The objective is the negative LML, the
+negative marginalized-basis LML, or the negative LOO pseudo-likelihood,
+minus an optional log prior. ``fit_restarts`` runs ``fit`` from
+perturbed starts and keeps the best. ``fit_iterative`` (matrix-free):
+Adam over the Hutchinson gradient estimator, without the finite check
+(plain ``optax.adam`` in the JAX package). Every iterate is clamped into
+the box of ``_BOUNDS``.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
+from cugp_tpu_torch.inference._lbfgs import LBFGS
 from cugp_tpu_torch.models import exact_gp
 from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 
-_NOT_PORTED = "not ported yet; see ROADMAP.md, slice 1"
 _NOT_PORTED_ITEM = "not ported yet; see ROADMAP.md, item {}"
 
 
 def _neg_lml(params, X, y, kind, jitter, method, basis=None,
              log_prior=None, objective="lml"):
-    if objective != "lml":
-        if objective == "loo":
-            raise NotImplementedError(f"objective='loo' is {_NOT_PORTED}")
+    if objective not in ("lml", "loo"):
         raise ValueError(f"unknown objective {objective!r}: lml | loo")
-    if basis is not None:
-        raise NotImplementedError(f"basis={basis!r} is {_NOT_PORTED}")
+    if objective == "loo":
+        if basis is not None:
+            raise NotImplementedError(
+                "objective='loo' is defined for the zero-mean model; "
+                "combine with basis=None (GPML 5.4.2 derives it for the "
+                "plain LML factorization)")
+        val = -exact_gp.loo_pseudo_likelihood(
+            params, X, y, kind=kind, jitter=jitter, method=method)
+    elif basis is not None:
+        val = -exact_gp.log_marginal_likelihood_basis(
+            params, X, y, kind=kind, jitter=jitter, method=method,
+            basis=basis)
+    else:
+        val = -exact_gp.log_marginal_likelihood(
+            params, X, y, kind=kind, jitter=jitter, method=method)
     if log_prior is not None:
-        raise NotImplementedError(f"log_prior is {_NOT_PORTED}")
-    return -exact_gp.log_marginal_likelihood(
-        params, X, y, kind=kind, jitter=jitter, method=method)
+        val = val - log_prior(params)
+    return val
 
 
 # Box constraints on log-hyperparameters: fp32 Cholesky fails (NaN) in the
@@ -68,13 +87,24 @@ def _clamp(params):
 def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
         steps=200, optimizer="adam", learning_rate=0.05, basis=None,
         log_prior=None, objective="lml"):
-    """Maximize the LML over log-hyperparameters with Adam.
+    """Maximize the LML (or log posterior) over log-hyperparameters.
 
-    Returns (params, info): info["loss"] holds the negative LML at each
-    step's pre-update params, info["lml"] = -loss[-1].
+    objective: "lml" or "loo" (the leave-one-out pseudo-likelihood,
+    exact_gp.loo_pseudo_likelihood). basis: None, "constant" or "linear"
+    (the marginalized-basis LML). log_prior: optional callable params ->
+    scalar log-density added to the objective (weak_log_prior is the
+    samplers' default). optimizer: "adam" or "lbfgs" (learning_rate is
+    ignored: the line search sets each step).
+
+    Returns (params, info): info["loss"] holds the negative objective at
+    each step's pre-update params, info["lml"] = -loss[-1]; L-BFGS adds
+    info["linesearch_steps"], the trial points of each step's search.
     """
+    loss_fn = functools.partial(
+        _neg_lml, X=X, y=y, kind=kind, jitter=jitter, method=method,
+        basis=basis, log_prior=log_prior, objective=objective)
     if optimizer == "lbfgs":
-        raise NotImplementedError(f"optimizer='lbfgs' is {_NOT_PORTED}")
+        return _fit_lbfgs(init_params, loss_fn, steps)
     if optimizer != "adam":
         raise ValueError(f"unknown optimizer: {optimizer}")
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
@@ -85,8 +115,7 @@ def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
     losses = []
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss = _neg_lml(params, X, y, kind, jitter, method, basis,
-                        log_prior, objective)
+        loss = loss_fn(params)
         loss.backward()
         losses.append(loss.detach())
         finite = torch.stack([torch.isfinite(p.grad).all() for p in leaves
@@ -97,6 +126,112 @@ def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
     loss_trace = torch.stack(losses)
     params = tree_map(lambda t: t.detach(), params)
     return params, {"loss": loss_trace, "lml": -loss_trace[-1]}
+
+
+def _fit_lbfgs(init_params, loss_fn, steps):
+    """L-BFGS over the flattened leaves: per step, the objective and its
+    gradient at the (clamped) iterate, one line search along the L-BFGS
+    direction, then the clamp, as the JAX scan body does."""
+    leaves = tree_leaves(init_params)
+    sizes = [t.numel() for t in leaves]
+
+    def unflatten(flat):
+        parts = iter(torch.split(flat, sizes))
+        return tree_map(lambda t: next(parts).view(t.shape), init_params)
+
+    def value_and_grad(flat):
+        x = flat.detach().requires_grad_(True)
+        with torch.enable_grad():
+            value = loss_fn(unflatten(x))
+            (grad,) = torch.autograd.grad(value, x)
+        return value.detach(), grad
+
+    x = torch.cat([t.detach().reshape(-1) for t in leaves])
+    opt = LBFGS()
+    losses, trials = [], []
+    for _ in range(steps):
+        value, grad = value_and_grad(x)
+        losses.append(value)
+        x, n = opt.step(x, value, grad, value_and_grad)
+        _clamp(unflatten(x))  # in place, through the views
+        trials.append(n)
+    loss_trace = torch.stack(losses)
+    params = tree_map(lambda t: t.clone(), unflatten(x))
+    return params, {"loss": loss_trace, "lml": -loss_trace[-1],
+                    "linesearch_steps": np.asarray(trials, np.int32)}
+
+
+def weak_log_prior(params):
+    """N(0, 3^2) on every log-hyperparameter leaf: the dict-space twin of
+    the samplers' default prior on the flat chain vector."""
+    return sum(torch.sum(-0.5 * (v / 3.0) ** 2) for v in tree_leaves(params))
+
+
+def _restart_starts(init_params, restarts, generator, scale):
+    """Start 0 is init_params exactly; the others add N(0, scale^2) to
+    every leaf, drawn from `generator` on its own device."""
+    starts = [init_params]
+    for _ in range(1, restarts):
+        starts.append(tree_map(
+            lambda t: t + scale * torch.randn(
+                t.shape, generator=generator, dtype=t.dtype,
+                device=generator.device).to(t.device), init_params))
+    return starts
+
+
+def fit_restarts(init_params, X, y, *, restarts=4, generator=None,
+                 scale=0.5, kind="rbf", jitter=1e-6, method="auto",
+                 steps=200, optimizer="adam", learning_rate=0.05, basis=None,
+                 log_prior=None, objective="lml"):
+    """Multi-start MAP: `restarts` perturbed inits, each optimized by
+    ``fit`` (the LML surface is multimodal in lengthscale/period space and
+    single-start Adam gets trapped). The JAX package vmaps the starts into
+    one program; here they run one after another.
+
+    Start 0 is init_params exactly; the rest perturb every leaf with
+    N(0, scale^2) noise from `generator` (a CPU generator seeded 0 by
+    default). A non-finite final objective never wins. Returns
+    (best_params, info) where info adds "restart_lmls" (the per-start
+    final objectives) and "best_restart".
+    """
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    runs = [fit(p, X, y, kind=kind, jitter=jitter, method=method,
+                steps=steps, optimizer=optimizer, learning_rate=learning_rate,
+                basis=basis, log_prior=log_prior, objective=objective)
+            for p in _restart_starts(init_params, restarts, generator, scale)]
+    finals = torch.stack([info["loss"][-1] for _, info in runs])
+    finals = torch.where(torch.isfinite(finals), finals, math.inf)
+    best = int(torch.argmin(finals))
+    params, info = runs[best]
+    return params, {"loss": info["loss"], "lml": -finals[best],
+                    "restart_lmls": -finals, "best_restart": best}
+
+
+def _tree_add(a, b):
+    """a + b leaf by leaf, matching dict leaves by key."""
+    if isinstance(a, dict):
+        return {k: _tree_add(v, b[k]) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_tree_add(u, v) for u, v in zip(a, b))
+    return a + b
+
+
+def _value_and_grad(fn, params):
+    """(fn(params), its gradient in params' nesting); a value that does not
+    depend on the params has zero gradient, as under jax.value_and_grad."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(p)
+    with torch.enable_grad():
+        value = fn(p)
+        if isinstance(value, torch.Tensor) and value.requires_grad:
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        else:
+            grads = [None] * len(leaves)
+    grads = iter([torch.zeros_like(t) if g is None else g
+                  for t, g in zip(leaves, grads)])
+    value = torch.as_tensor(value, dtype=torch.float32).detach()
+    return value, tree_map(lambda _: next(grads), p)
 
 
 def check_iterative_schedule(segment_iters="auto", precond_where="auto"):
@@ -152,8 +287,6 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     """
     import sys
 
-    import numpy as np
-
     from cugp_tpu_torch.inference import iterative
     from cugp_tpu_torch.ops import kernels as kernel_ops
 
@@ -164,9 +297,6 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     if checkpoint_dir is not None:
         raise NotImplementedError("checkpoint_dir: checkpoint/resume is "
                                   + _NOT_PORTED_ITEM.format(16))
-    if log_prior is not None:
-        raise NotImplementedError("log_prior in fit_iterative is "
-                                  + _NOT_PORTED_ITEM.format("1b"))
     n = X.shape[0]
     if split_programs == "auto":
         split_programs = n >= 32768
@@ -229,6 +359,10 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
                 tol=tol, max_iters=max_iters, num_probes=num_probes,
                 precond=precond, grad_method=grad_method)
             it = -1  # fused call: count not kept
+        if log_prior is not None:
+            pv, pg = _value_and_grad(log_prior, params)
+            value = value + pv
+            grads = _tree_add(grads, pg)
         if it >= 0:
             cg_iters.append(it)
             if adaptive_refresh and precond_rank:

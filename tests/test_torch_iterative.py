@@ -537,8 +537,6 @@ def test_unported_arguments_raise(problem):
         gp.fit_iterative(X, y, steps=1, precond_where="host")
     with pytest.raises(NotImplementedError, match="item 16"):
         gp.fit_iterative(X, y, steps=1, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        gp.fit_iterative(X, y, steps=1, log_prior=lambda p: 0.0)
 
 
 def test_gp_defaults_to_the_card():

@@ -108,17 +108,15 @@ def test_normalize_y_and_condition_match_jax(config2):
     np.testing.assert_allclose(var_t.numpy(), np.asarray(var_j), atol=1e-4)
 
 
-def test_unported_options_raise(config2):
-    X, y, _ = config2
-    gp = cugp_tpu_torch.GP(kind="rbf", device="cpu")
-    with pytest.raises(NotImplementedError):
-        gp.fit(X, y, steps=1, optimizer="lbfgs")
-    with pytest.raises(NotImplementedError):
-        gp.fit(X, y, steps=1, restarts=2)
-    with pytest.raises(NotImplementedError):
-        gp.fit(X, y, steps=1, objective="loo")
-    with pytest.raises(NotImplementedError):
-        cugp_tpu_torch.GP(kind="rbf", basis="linear")
+def test_unported_options_raise():
+    """What stays unported raises: the precision policies (ROADMAP item
+    1e), the JAX package's XLA routes, an unknown kernel kind."""
+    from cugp_tpu_torch.ops import cholesky as chol_ops
+
+    K = torch.eye(8) * 2.0
+    for precision in ("high", "mixed", "mixed_fast"):
+        with pytest.raises(NotImplementedError, match="precision"):
+            chol_ops.cholesky(K, precision=precision)
     with pytest.raises(ValueError):
         cugp_tpu_torch.GP(kind="rbf", method="xla")
     with pytest.raises(ValueError):
@@ -158,6 +156,9 @@ def test_port_never_imports_jax():
             "import cugp_tpu_torch.ops.cholesky, cugp_tpu_torch.ops.trsm\n"
             "import cugp_tpu_torch.ops.kernels, cugp_tpu_torch.ops._build\n"
             "import cugp_tpu_torch.data.synthetic\n"
+            "import cugp_tpu_torch.oracle.exact_gp_np, "
+            "cugp_tpu_torch.utils.checkpoint\n"
+            "import cugp_tpu_torch.inference._lbfgs\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'cugp_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
