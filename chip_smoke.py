@@ -27,7 +27,15 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      repeats bitwise, the narrow route's columns bitwise independent of
      r; timed by route at N=100,000, with the linear kind beside rbf),
      each beside its bound and, where one exists, the one PyTorch call
-     that computes the same function;
+     that computes the same function; then the batched launches of the
+     covariance tile, potrf and TRSM (B = 1, 7, 256; n = 512 and 500;
+     TRSM at k = 1, 16, 17, 512, both transposes, right-side and vector
+     right-hand sides at B = 7): each bitwise equal to the loop over its
+     elements and within the plain version's bars, potrf's cooperative
+     and batch routes bitwise equal (the route each B takes printed, the
+     two timed by B), a non-PD element NaN in its block only; config 3's
+     shapes timed beside the loop, the batched library call and the
+     bound;
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against the float64 oracle (the port's copy), with each
@@ -46,11 +54,20 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      analytic LML gradients against autograd (rbf, rq, periodic),
      sample_posterior (64 draws at 2000 points) and save/load, each
      gated against the float64 oracle or its own reference, launch
-     counters read around them.
+     counters read around them;
+  7. BASELINE config 3 (sinusoid_1d(n=512), rbf, 256 chains): 8 chain
+     states in one batched log density against the float64 oracle, one
+     at a time and alone in a batch, and through the jitter ladder; HMC
+     through GP.sample_hyperparams (32 leapfrog steps, 64 warm-up, 64
+     draws: samples/s, accept rate, R-hat and ESS), NUTS (depth 6, 64
+     warm-up, 128 draws), HMC on a standard Gaussian, mean-field VI
+     through GP.fit_vi, each gated; launch counters read around the
+     phase (the samplers path).
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
-Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), and
-one L-BFGS step and one loo() at config 2 (phase 6).
+Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), one
+L-BFGS step and one loo() at config 2 (phase 6), and one HMC transition
+of 256 chains at config 3 (phase 7).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -198,6 +215,46 @@ COV_TIMED = ((8000, 8000, 4, True), (32768, 32768, 8, True),
              (4096, 100_000, 4, False), (100_000, 128, 4, False))
 
 
+def cov_against_plain(torch, tag, got, xs1, xs2, s, kind, square, n1, n2):
+    """A build (2-D or batched) against the plain version and against the
+    plain version in float64 on the same inputs (the witness). The fp32
+    plain version strays from the witness where its exponent cross -
+    s1/2 - s2/2 cancels (about eps s sf2 on the diagonal of the periodic
+    view at d = 40, where a row's s is about 160): that stray is allowed
+    on top of rtol and atol in the comparison with it, not in the one
+    with the witness. Returns the two max abs errors."""
+    from cugp_tpu_torch.ops import cov_cuda
+
+    rtol = atol = 1e-5
+    want = cov_cuda.cov_tile_plain(xs1, xs2, s, kind, square, n1, n2)
+    exact = cov_cuda.cov_tile_plain(xs1.double(), xs2.double(), s.double(),
+                                    kind, square, n1, n2)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"cov {tag}: shape {tuple(got.shape)} or non-finite")
+    tol = atol
+    if kind == "matern12":
+        # exp(-r) has slope -1 at r = 0, and r = sqrt(d2) turns the fp32
+        # rounding of d2 = s1 + s2 - 2 cross (a few eps (s1+s2), summed in
+        # another order by each build) into an r error of its square
+        # root: near coincident points the bar is sf2 sqrt(8 eps (s1 +
+        # s2)), elsewhere rtol = atol = 1e-5
+        s12 = ((xs1 * xs1).sum(-1)[..., :, None]
+               + (xs2 * xs2).sum(-1)[..., None, :])
+        d2 = (s12 - 2.0 * xs1 @ xs2.mT).clamp(min=0.0)
+        slack = s[..., 0, None, None] * torch.sqrt(8 * 1.1920929e-07 * s12)
+        tol = torch.where(d2 < 1e-2, slack, 0.0) + atol
+    ok_x, err_x, _ = _close(got.double(), exact, rtol, tol)
+    if not ok_x:
+        fail(f"cov {tag}: max abs err {err_x:.3e} against float64 over "
+             f"rtol=atol={rtol}")
+    stray = (want.double() - exact).abs()
+    ok, err, _ = _close(got, want, rtol, tol + stray)
+    if not ok:
+        fail(f"cov {tag}: max abs err {err:.3e} over rtol=atol={rtol} "
+             f"plus the plain version's own error ({float(stray.max()):.3e})")
+    return err, err_x
+
+
 def _cov_bound(m, n, d, square):
     """X1 and X2 read once (one tensor when square), K written once;
     2d + 3 flops an entry."""
@@ -209,7 +266,6 @@ def phase_cov(torch, dev, results):
     from cugp_tpu_torch.ops import cov_cuda, kernels
 
     rng = np.random.default_rng(0)
-    rtol = atol = 1e-5
     worst = 0.0
 
     def scal(diag_add, kind):
@@ -235,49 +291,20 @@ def phase_cov(torch, dev, results):
         return cov_cuda.route(k.stride(0), k.data_ptr())
 
     def check(tag, xs1, xs2, kind, square, n1, n2, diag_add):
-        """The kernel against the plain version and against the plain
-        version in float64 on the same inputs (the witness), and a repeat
-        bitwise. The fp32 plain version strays from the witness where its
-        exponent cross - s1/2 - s2/2 cancels (about eps s sf2 on the
-        diagonal of the periodic view at d = 40, where a row's s is about
-        160): that stray is allowed on top of rtol and atol in the
-        comparison with it, not in the one with the witness. Returns the
-        two max abs errors and the build."""
+        """The kernel against the plain version and its float64 witness
+        (cov_against_plain), and a repeat bitwise. Returns the two max abs
+        errors and the build."""
         nonlocal worst
         s = scal(diag_add, kind)
         got = cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2)
-        want = cov_cuda.cov_tile_plain(xs1, xs2, s, kind, square, n1, n2)
-        exact = cov_cuda.cov_tile_plain(xs1.double(), xs2.double(),
-                                        s.double(), kind, square, n1, n2)
         again = cov_cuda.cov_tile(xs1, xs2, s, kind, square, n1, n2)
         torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            fail(f"cov {tag}: shape {tuple(got.shape)} or non-finite")
         if not torch.equal(got, again):
             fail(f"cov {tag}: two launches differ")
-        tol = atol
-        if kind == "matern12":
-            # exp(-r) has slope -1 at r = 0, and r = sqrt(d2) turns the
-            # fp32 rounding of d2 = s1 + s2 - 2 cross (a few eps (s1+s2),
-            # summed in another order by each build) into an r error of
-            # its square root: near coincident points the bar is
-            # sf2 sqrt(8 eps (s1 + s2)), elsewhere rtol = atol = 1e-5
-            s12 = ((xs1 * xs1).sum(1)[:, None] + (xs2 * xs2).sum(1)[None, :])
-            d2 = (s12 - 2.0 * xs1 @ xs2.T).clamp(min=0.0)
-            slack = s[0] * torch.sqrt(8 * 1.1920929e-07 * s12)
-            tol = torch.where(d2 < 1e-2, slack, 0.0) + atol
-        ok_x, err_x, _ = _close(got.double(), exact, rtol, tol)
-        if not ok_x:
-            fail(f"cov {tag}: max abs err {err_x:.3e} against float64 over "
-                 f"rtol=atol={rtol}")
-        stray = (want.double() - exact).abs()
-        ok, err, _ = _close(got, want, rtol, tol + stray)
+        err, err_x = cov_against_plain(torch, tag, got, xs1, xs2, s, kind,
+                                       square, n1, n2)
         worst = max(worst, err)
-        if not ok:
-            fail(f"cov {tag}: max abs err {err:.3e} over rtol=atol={rtol} "
-                 "plus the plain version's own error "
-                 f"({float(stray.max()):.3e})")
-        del want, exact, again
+        del again
         return f"{err:.3e}/{err_x:.3e}", got
 
     X = uniform(8000, 4)
@@ -793,6 +820,224 @@ def _trsm_bound(n, k):
     return bound(4 * (n * (n + 1) // 2 + 2 * n * k), n ** 2 * k)
 
 
+BATCH_SIZES = (1, 7, 256)
+BATCH_N = (512, 500)  # config 3's block, and a ragged one
+BATCH_K = (1, 16, 17, 512)  # alpha, the narrow/wide edge, Murray's solves
+BASE_KINDS = ("rbf", "matern12", "matern32", "matern52", "rq", "linear")
+
+
+def _time_batched(torch, tag, fn, loop, plain, library, bound_ms_by,
+                  iters=10):
+    """A batched launch by CUDA events beside the loop over its elements
+    (the 2-D call each), its plain version, the batched library call (or
+    None) and its bound; one line and its row."""
+    ms = cuda_ms(fn, iters=iters, reps=3)
+    loop_ms = cuda_ms(loop, iters=3, warmup=1)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    library_ms = (cuda_ms(library, iters=iters, reps=3)
+                  if library is not None else None)
+    b_ms, b_by = bound_ms_by
+    say("batched", shape=tag, kernel_ms=f"{ms:.4f}",
+        loop_ms=f"{loop_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms="none" if library_ms is None else f"{library_ms:.4f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by)
+    return {"ms": ms, "loop_ms": loop_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _spd_batch(torch, B, n, dev, seed):
+    """B blocks G G^T / n + I (eigenvalues in about [1, 5]), made on the
+    card."""
+    g = torch.randn(B, n, n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    return g @ g.mT / n + torch.eye(n, device=dev)
+
+
+def phase_batched(torch, dev, results, sizes=BATCH_SIZES, ns=BATCH_N,
+                  timed=(256, 512)):
+    """The three dense kernels on a leading batch (B = 1, 7, 256; n = 512
+    and a ragged 500): each batched launch bitwise equal to the loop over
+    its elements through the 2-D call, and within the plain version's
+    bars; potrf's cooperative and batch routes bitwise equal; config 3's
+    shapes timed."""
+    from cugp_tpu_torch.ops import chol_cuda, cov_cuda, trsm_cuda
+
+    rng = np.random.default_rng(7)
+
+    def t32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def scal(B):
+        return t32(np.stack([rng.uniform(0.5, 2.0, B),
+                             rng.uniform(0.01, 0.2, B),
+                             rng.uniform(0.3, 2.0, B)], axis=1))
+
+    # covariance: square builds (every base kind at B = 7) and a ragged
+    # cross build with padded rows
+    worst = 0.0
+    for B in sizes:
+        for n in ns:
+            for d in (1, 4):
+                for kind in BASE_KINDS if B == 7 else ("rbf",):
+                    xs, s = t32(rng.uniform(-2, 2, (B, n, d))), scal(B)
+                    got = cov_cuda.cov_tile(xs, xs, s, kind, True, n, n)
+                    loop = torch.stack([cov_cuda.cov_tile(
+                        xs[b], xs[b], s[b], kind, True, n, n)
+                        for b in range(B)])
+                    tag = f"B={B} n={n} d={d} {kind} square"
+                    if not torch.equal(got, loop):
+                        fail(f"cov batched {tag}: differs from the loop")
+                    err, _ = cov_against_plain(torch, tag, got, xs, xs, s,
+                                               kind, True, n, n)
+                    worst = max(worst, err)
+                    if B == 7 and n == 500:
+                        x2 = t32(rng.uniform(-2, 2, (B, 300, d)))
+                        got = cov_cuda.cov_tile(xs, x2, s, kind, False,
+                                                n - 3, 300)
+                        loop = torch.stack([cov_cuda.cov_tile(
+                            xs[b], x2[b], s[b], kind, False, n - 3, 300)
+                            for b in range(B)])
+                        if not torch.equal(got, loop):
+                            fail(f"cov batched B=7 {n}x300 d={d} {kind} "
+                                 "cross: differs from the loop")
+                        err, _ = cov_against_plain(
+                            torch, f"B=7 {n}x300 d={d} {kind} cross", got,
+                            xs, x2, s, kind, False, n - 3, 300)
+                        worst = max(worst, err)
+            say("batched", kernel="cov", B=B, n=n, d="1,4",
+                kinds="all base" if B == 7 else "rbf",
+                loop_bitwise=True, max_abs_err_vs_plain=f"{worst:.3e}")
+    (B, n), d = timed, 1
+    xs, s = t32(rng.uniform(-3, 3, (B, n, d))), scal(B)
+    cov_row = _time_batched(
+        torch, f"cov B={B} n={n} d={d} rbf square",
+        lambda: cov_cuda.cov_tile(xs, xs, s, "rbf", True, n, n),
+        lambda: [cov_cuda.cov_tile(xs[b], xs[b], s[b], "rbf", True, n, n)
+                 for b in range(B)],
+        lambda: cov_cuda.cov_tile_plain(xs, xs, s, "rbf", True, n, n),
+        None, bound(4 * (B * n * d + B * 3 + B * n * n),
+                    B * n * n * (2 * d + 3)))
+    results["cov"]["batched"] = {f"B={B} n={n} d={d}": {
+        "max_abs_err": worst, **cov_row}}
+
+    # potrf: both routes and the loop, bitwise; a non-PD element gives NaN
+    # in its block only
+    worst, factors = 0.0, {}
+    for B in sizes:
+        for n in ns:
+            A = _spd_batch(torch, B, n, dev, seed=B * 1000 + n)
+            auto = chol_cuda.potrf(A)
+            coop = chol_cuda.potrf(A, "cooperative")
+            batch = chol_cuda.potrf(A, "batch")
+            loop = torch.stack([chol_cuda.potrf(a) for a in A])
+            torch.cuda.synchronize()
+            if not (torch.equal(coop, batch) and torch.equal(auto, loop)
+                    and torch.equal(auto, coop)):
+                fail(f"potrf batched B={B} n={n}: the routes or the loop "
+                     "differ")
+            ref = torch.linalg.cholesky(A)
+            rec = float(((auto @ auto.mT - A).abs().amax((-2, -1))
+                         / A.abs().amax((-2, -1))).max())
+            err = float((auto - ref).abs().max())
+            worst = max(worst, err)
+            if not (rec <= 1e-5 and err <= 1e-4 * float(ref.abs().max())):
+                fail(f"potrf batched B={B} n={n}: recon relerr {rec:.3e} "
+                     f"(bar 1e-5), L err {err:.3e} (bar 1e-4 rel)")
+            say("batched", kernel="potrf", B=B, n=n,
+                route=chol_cuda.route(n, B, dev),
+                routes_and_loop_bitwise=True, recon_relerr=f"{rec:.3e}",
+                L_err=f"{err:.3e}")
+            factors[B, n] = auto
+            del A, coop, batch, loop, ref
+    A = _spd_batch(torch, 7, ns[0], dev, seed=5)
+    A[3, ns[0] // 2, ns[0] // 2] = -50.0
+    L = chol_cuda.potrf(A)
+    fine = torch.isfinite(L).flatten(1).all(1).tolist()
+    same = all(torch.equal(L[b], chol_cuda.potrf(A[b]))
+               for b in range(7) if b != 3)
+    if fine != [b != 3 for b in range(7)] or not same:
+        fail(f"potrf batched: a non-PD element 3 gave finite flags {fine}, "
+             f"the others equal to the loop: {same}")
+    say("batched", kernel="potrf", case="non-PD element 3 of 7",
+        nan_only_there=True, others_equal_loop=True)
+    B, n = timed
+    A = _spd_batch(torch, B, n, dev, seed=11)
+    potrf_row = _time_batched(
+        torch, f"potrf B={B} n={n} route={chol_cuda.route(n, B, dev)}",
+        lambda: chol_cuda.potrf(A), lambda: [chol_cuda.potrf(a) for a in A],
+        lambda: chol_cuda.potrf_plain(A), lambda: torch.linalg.cholesky(A),
+        bound(4 * 2 * B * n * n, B * n ** 3 / 3))
+    potrf_row["cooperative_ms"] = cuda_ms(
+        lambda: chol_cuda.potrf(A, "cooperative"), iters=3, warmup=1)
+    results["potrf"]["batched"] = {f"B={B} n={n}": {
+        "max_abs_err": worst, **potrf_row}}
+    for Bs in (2, 4, 8, 16, 32, 64):
+        As = A[:Bs].contiguous()
+        say("batched", kernel="potrf", case="routes by B", B=Bs, n=n,
+            auto=chol_cuda.route(n, Bs, dev),
+            cooperative_ms=f"{cuda_ms(lambda: chol_cuda.potrf(As, 'cooperative'), iters=5):.4f}",
+            batch_ms=f"{cuda_ms(lambda: chol_cuda.potrf(As, 'batch'), iters=5):.4f}")
+    del A
+
+    # TRSM: left solves of both transposes at every B, n, k; at B = 7 also
+    # right-side and vector right-hand sides
+    worst = 0.0
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for (B, n), L in factors.items():
+        rels = []
+        for k in BATCH_K:
+            for transpose in (False, True):
+                for left in (True, False) if B == 7 else (True,):
+                    for vec in (False, True) if B == 7 and k == 1 else (
+                            False,):
+                        shape = ((B, n) if vec else
+                                 (B, n, k) if left else (B, k, n))
+                        Bm = torch.randn(*shape, device=dev, generator=gen)
+                        got = trsm_cuda.trsm(L, Bm, left, transpose)
+                        loop = torch.stack([trsm_cuda.trsm(
+                            L[b], Bm[b], left, transpose) for b in range(B)])
+                        tag = (f"B={B} n={n} k={k} transpose={transpose} "
+                               f"left={left} vector={vec}")
+                        if not torch.equal(got, loop):
+                            fail(f"trsm batched {tag}: differs from the "
+                                 "loop")
+                        g2 = got[..., None] if vec and left else (
+                            got[..., None, :] if vec else got)
+                        b2 = Bm[..., None] if vec and left else (
+                            Bm[..., None, :] if vec else Bm)
+                        opL = L.mT if transpose else L
+                        res = (opL @ g2 if left else g2 @ opL) - b2
+                        rel = float((res.abs().amax((-2, -1))
+                                     / b2.abs().amax((-2, -1))).max())
+                        rels.append(rel)
+                        err = float((got - trsm_cuda.trsm_plain(
+                            L, Bm, left, transpose)).abs().max())
+                        worst = max(worst, err)
+                        if not rel <= 1e-5:
+                            fail(f"trsm batched {tag}: residual {rel:.3e} "
+                                 "(bar 1e-5)")
+        say("batched", kernel="trsm", B=B, n=n,
+            ks=",".join(map(str, BATCH_K)), cases=len(rels),
+            loop_bitwise=True, max_residual=f"{max(rels):.3e}")
+    B, n = timed
+    L = factors[B, n]
+    trsm_rows = {}
+    for k in (1, 512):
+        Bm = torch.randn(B, n, k, device=dev, generator=gen)
+        trsm_rows[f"B={B} n={n} k={k}"] = _time_batched(
+            torch, f"trsm B={B} n={n} k={k}",
+            lambda: trsm_cuda.trsm(L, Bm),
+            lambda: [trsm_cuda.trsm(L[b], Bm[b]) for b in range(B)],
+            lambda: trsm_cuda.trsm_plain(L, Bm),
+            lambda: torch.linalg.solve_triangular(L, Bm, upper=False),
+            bound(4 * B * (n * (n + 1) // 2 + 2 * n * k), B * n * n * k))
+    for row in trsm_rows.values():
+        row["max_abs_err"] = worst
+    results["trsm"]["batched"] = trsm_rows
+    del factors
+    torch.cuda.empty_cache()
+
+
 def _wrappers():
     from cugp_tpu_torch.ops import (chol_cuda, cov_cuda, cov_matvec_cuda,
                                     trsm_cuda)
@@ -1290,6 +1535,224 @@ def phase_dense_api(torch, dev, profile=False, n=8000, n_test=2000,
     return launches
 
 
+def _flat_of(samples):
+    """The samplers' (S, C, D) flat draws from their params tree, in
+    jax's tree order."""
+    import torch
+
+    from cugp_tpu_torch.utils.params import sorted_leaves
+
+    return torch.cat([t.reshape(t.shape[0], t.shape[1], -1)
+                      for t in sorted_leaves(samples)], dim=-1)
+
+
+def _chain_stats(torch, flat):
+    """Per coordinate of (S, C, D) draws: mean, variance, split R-hat,
+    ESS, and the Monte Carlo standard error of the mean."""
+    from cugp_tpu_torch.inference import sampling
+
+    out = []
+    for j in range(flat.shape[-1]):
+        x = flat[..., j].double()
+        var = float(x.var())
+        ess = float(sampling.effective_sample_size(x))
+        out.append({"mean": float(x.mean()), "var": var,
+                    "rhat": float(sampling.potential_scale_reduction(x)),
+                    "ess": ess, "se": (var / max(ess, 1.0)) ** 0.5})
+    return out
+
+
+def phase_samplers(torch, dev, profile=False, n=512, chains=256, warmup=64,
+                   draws=64, nuts_warmup=64, nuts_draws=128, vi_steps=300):
+    """BASELINE config 3: hyperparameter HMC, NUTS and VI over 256
+    batched chains on sinusoid_1d(n=512), rbf (benchmarks/bench_hmc.py's
+    data and init), every chain in one batched LML an evaluation."""
+    import cugp_tpu_torch
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.inference import hmc, sampling
+    from cugp_tpu_torch.ops import cholesky, kernels
+    from cugp_tpu_torch.oracle import exact_gp_np as oracle
+
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            say("samplers", FAILED=repr(what))
+            failures.append(what)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    X, y, _ = synthetic.sinusoid_1d(n=n, noise_std=0.1, seed=0)
+    gp = cugp_tpu_torch.GP(kind="rbf", device=dev).condition(
+        X, y, params=kernels.init_params(d=1, lengthscale=0.8,
+                                         noise_var=0.05))
+    lpg, unravel, q0 = sampling.make_flat_logprob(gp.params, gp.X, gp.y)
+    names = ["log_lengthscale", "log_noise_var", "log_signal_var"]  # q's
+
+    # (a) 8 chain states in one batched call: against the float64 oracle
+    # (LML and its gradient plus the prior), against the same states one
+    # at a time, each state alone in a batch of 8 copies of itself, and
+    # with one chain forced through the jitter ladder
+    qs = q0[None, :] + 0.3 * torch.randn(8, q0.numel(), device=dev,
+                                         generator=gen(2))
+    (logp, grad), t_eval = synced(lambda: lpg(qs))
+    worst = {"oracle_logp": 0.0, "oracle_grad": 0.0, "single_logp": 0.0,
+             "single_grad": 0.0}
+    alone = True
+    for i in range(8):
+        q = qs[i].double().cpu().numpy()
+        p64 = {"log_lengthscale": q[:1], "log_noise_var": q[1],
+               "log_signal_var": q[2]}
+        lp64 = (oracle.log_marginal_likelihood(p64, X, y)
+                - 0.5 * float(np.sum((q / 3.0) ** 2)))
+        g = oracle.lml_gradients(p64, X, y)
+        g64 = np.array([float(np.ravel(g[k])[0]) for k in names]) - q / 9.0
+        lp1, g1 = lpg(qs[i:i + 1])
+        gi = grad[i].double().cpu().numpy()
+        worst["oracle_logp"] = max(worst["oracle_logp"],
+                                   abs(float(logp[i]) - lp64) / abs(lp64))
+        worst["oracle_grad"] = max(worst["oracle_grad"], float(
+            np.abs(gi - g64).max() / np.abs(g64).max()))
+        worst["single_logp"] = max(worst["single_logp"], abs(
+            float(lp1[0]) - float(logp[i])) / abs(float(logp[i])))
+        worst["single_grad"] = max(worst["single_grad"], float(
+            (g1[0] - grad[i]).abs().max() / grad[i].abs().max()))
+        lp8, g8 = lpg(qs[i].expand(8, -1).contiguous())
+        alone &= bool(torch.equal(lp8[0], logp[i])
+                      and torch.equal(g8[0], grad[i]))
+    say("samplers", case="8 states, one batched call",
+        eval_s=f"{t_eval:.4f}",
+        **{f"rel_err_{k}": f"{v:.3e}" for k, v in worst.items()},
+        each_alone_in_a_batch_of_8_bitwise=alone)
+    gate(worst["oracle_logp"] <= 1e-3 and worst["oracle_grad"] <= 1e-3,
+         "log density or gradient off the float64 oracle by more than 1e-3")
+    # one at a time (a batch of 1): the log density at 1e-5; the gradient
+    # at 1e-4 of its largest component, since cuBLAS takes other GEMM
+    # kernels for Murray's rule at a batch of 1 and of 8 and the
+    # gradient's terms cancel (1.556e-05 on an H100 80GB HBM3 at 700 W)
+    gate(worst["single_logp"] <= 1e-5 and worst["single_grad"] <= 1e-4,
+         "batched evaluation off the one-at-a-time one (log density 1e-5, "
+         "gradient 1e-4)")
+    gate(alone, "a chain's log density or gradient depends on the other "
+         "chains of its batch")
+    bad = qs.clone()
+    bad[3] = torch.tensor([0.0, -20.0, 0.0], device=dev)  # ell 1, sn2 2e-9
+    K3 = kernels.train_covariance(unravel(bad[3]), gp.X)
+    first = bool(torch.isfinite(cholesky.cholesky(K3)).all())
+    logp_b, grad_b = lpg(bad)
+    keep = [i for i in range(8) if i != 3]
+    kept = torch.equal(logp_b[keep], logp[keep])
+    retried = bool(torch.isfinite(logp_b[3]) and torch.isfinite(grad_b[3]).all())
+    say("samplers", case="chain 3 not PD", first_factor_finite=first,
+        retried_finite=retried, others_bitwise=kept)
+    gate(not first and retried and kept,
+         "the jitter ladder: chain 3 not forced, not repaired, or the "
+         "others' values changed")
+    del K3
+
+    # (b) HMC through GP.sample_hyperparams: 32 leapfrog steps,
+    # warmup + draws transitions
+    out, t_hmc = synced(lambda: gp.sample_hyperparams(
+        sampler="hmc", num_chains=chains, num_warmup=warmup,
+        num_samples=draws, generator=gen(3)))
+    flat_h = _flat_of(out["samples"])
+    kernel = hmc.make_hmc_kernel(lpg, n_leapfrog=32)
+    state = hmc.init_state(flat_h[-1].contiguous(), lpg)
+    seg_draws = 8
+    _, t_seg = synced(lambda: hmc.sample_segment(
+        state, gen(4), kernel, out["eps"], out["inv_mass"], seg_draws))
+    st_h = _chain_stats(torch, flat_h)
+    acc = float(out["accept_rate"])
+    say("samplers", sampler="hmc", chains=chains, warmup=warmup,
+        draws=draws, leapfrog=32, wall_s=f"{t_hmc:.3f}",
+        samples_per_s_total=f"{draws * chains / t_hmc:.2f}",
+        samples_per_s_after_warmup=f"{seg_draws * chains / t_seg:.2f}",
+        s_per_transition=f"{t_seg / seg_draws:.4f}",
+        accept_rate=f"{acc:.4f}", eps=f"{float(out['eps']):.4f}")
+    for name, st in zip(names, st_h):
+        say("samplers", sampler="hmc", hyperparameter=name,
+            mean=f"{st['mean']:.4f}", sd=f"{st['var'] ** 0.5:.4f}",
+            rhat=f"{st['rhat']:.4f}", ess=f"{st['ess']:.1f}")
+        gate(st["rhat"] <= 1.1, f"HMC R-hat of {name} over 1.1")
+    gate(0.5 <= acc <= 0.95, "HMC accept rate outside 0.5-0.95")
+
+    # (c) NUTS, max_tree_depth 6
+    out_n, t_nuts = synced(lambda: gp.sample_hyperparams(
+        sampler="nuts", num_chains=chains, num_warmup=nuts_warmup,
+        num_samples=nuts_draws, max_tree_depth=6, generator=gen(5)))
+    st_n = _chain_stats(torch, _flat_of(out_n["samples"]))
+    say("samplers", sampler="nuts", chains=chains, warmup=nuts_warmup,
+        draws=nuts_draws, max_tree_depth=6, wall_s=f"{t_nuts:.3f}",
+        samples_per_s_total=f"{nuts_draws * chains / t_nuts:.2f}",
+        accept_rate=f"{float(out_n['accept_rate']):.4f}",
+        divergence_rate=f"{float(out_n['divergence_rate']):.4f}",
+        mean_leapfrog=f"{float(out_n['mean_leapfrog']):.2f}")
+    for name, a, b in zip(names, st_h, st_n):
+        z = abs(a["mean"] - b["mean"]) / (a["se"] ** 2 + b["se"] ** 2) ** 0.5
+        say("samplers", sampler="nuts", hyperparameter=name,
+            mean=f"{b['mean']:.4f}", sd=f"{b['var'] ** 0.5:.4f}",
+            rhat=f"{b['rhat']:.4f}", ess=f"{b['ess']:.1f}",
+            hmc_gap_in_se=f"{z:.3f}")
+        gate(b["rhat"] <= 1.1, f"NUTS R-hat of {name} over 1.1")
+        gate(z <= 5.0, f"HMC and NUTS means of {name} over 5 MC SE apart")
+
+    # (d) a standard Gaussian target at 256 chains on the card
+    def gauss(q):
+        return -0.5 * torch.sum(q * q, dim=-1), -q
+
+    out_g = hmc.run_hmc(torch.randn(chains, 3, device=dev, generator=gen(6)),
+                        gen(7), gauss, n_leapfrog=16, num_warmup=100,
+                        num_samples=100, eps0=0.2)
+    st_g = _chain_stats(torch, out_g["samples_flat"])
+    z_g = max(abs(st["mean"]) / st["se"] for st in st_g)
+    ratios = [st["var"] for st in st_g]
+    say("samplers", target="standard gaussian, dim 3", chains=chains,
+        max_mean_in_se=f"{z_g:.3f}",
+        var_ratios=",".join(f"{r:.4f}" for r in ratios))
+    gate(z_g <= 5.0 and all(0.8 <= r <= 1.25 for r in ratios),
+         "HMC on a standard Gaussian: a mean over 5 MC SE or a variance "
+         "ratio outside 0.8-1.25")
+
+    # (e) VI, mean-field
+    out_v, t_vi = synced(lambda: gp.fit_vi(steps=vi_steps,
+                                           learning_rate=0.02, num_mc=8,
+                                           generator=gen(8)))
+    elbo = out_v["elbo"].cpu().numpy()
+    m_v = out_v["vp"]["mean"].cpu().numpy()
+    z_v = [abs(m - st["mean"]) / st["var"] ** 0.5 for m, st in zip(m_v, st_h)]
+    say("samplers", vi="meanfield", steps=vi_steps, num_mc=8,
+        s_per_step=f"{t_vi / vi_steps:.4f}",
+        elbo_first=f"{elbo[:30].mean():.3f}",
+        elbo_last=f"{elbo[-30:].mean():.3f}",
+        mean_gap_in_hmc_sd=",".join(f"{z:.3f}" for z in z_v))
+    gate(elbo[-30:].mean() > elbo[:30].mean(), "VI: the ELBO did not rise")
+    gate(max(z_v) <= 3.0, "VI mean over 3 HMC posterior SDs from HMC's")
+
+    launches = read_launches()
+    say("samplers", wall_s=f"{time.perf_counter() - t_phase:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    for name in ("cov", "potrf", "trsm"):
+        gate(launches[name] > 0, f"samplers: the {name} kernel was never "
+             "launched")
+    if failures:
+        fail("samplers: " + "; ".join(failures))
+    if profile:
+        profile_device(torch, "profile_samplers_hmc_transition",
+                       lambda: kernel(state, gen(9), out["eps"],
+                                      out["inv_mass"]))
+    return launches
+
+
 def profile_device(torch, tag, fn):
     """fn() under torch.profiler: device time by kernel, and the host
     wall around it (its idle share is 1 - busy / wall)."""
@@ -1340,7 +1803,7 @@ def main(argv):
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
     phases = {int(v) for v in
-              opts.get("--phases", "0,1,2,3,4,5,6").split(",")}
+              opts.get("--phases", "0,1,2,3,4,5,6,7").split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
@@ -1350,6 +1813,7 @@ def main(argv):
         phase_potrf(torch, dev, results)
         phase_trsm(torch, dev, results, profile="--profile" in opts)
         phase_cov_matvec(torch, dev, results)
+        phase_batched(torch, dev, results)
     if 3 in phases:
         paths["dense"] = phase_main(torch, dev, profile="--profile" in opts)
     if 4 in phases:
@@ -1360,7 +1824,10 @@ def main(argv):
     if 6 in phases:
         paths["dense_api"] = phase_dense_api(torch, dev,
                                              profile="--profile" in opts)
-    if phases != {0, 1, 2, 3, 4, 5, 6}:
+    if 7 in phases:
+        paths["samplers"] = phase_samplers(torch, dev,
+                                           profile="--profile" in opts)
+    if phases != {0, 1, 2, 3, 4, 5, 6, 7}:
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

@@ -1,5 +1,5 @@
 """User-facing API facade, as ``cugp_tpu/api.py``'s ``GP`` (dense and
-matrix-free parts, persistence).
+matrix-free parts, hyperparameter HMC/NUTS and VI, persistence).
 
 ``GP`` runs where its ``device`` says, "cuda" unless the caller asks for
 the CPU: data, hyperparameters and every kernel launch live there. There
@@ -318,6 +318,65 @@ class GP:
         gp.y_mean = extra.get("y_mean", 0.0)
         gp.y_std = extra.get("y_std", 1.0)
         return gp
+
+    def _rng(self, generator, draws):
+        """The samplers' random numbers: explicit draws (an hmc.Draws),
+        else `generator`, else a generator on this GP's device seeded 0."""
+        from cugp_tpu_torch.inference import hmc
+
+        if draws is not None:
+            if not isinstance(draws, hmc.Draws):
+                raise TypeError("draws must be an hmc.Draws")
+            return draws
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return hmc.Draws(generator)
+
+    def _sampler_init(self, init):
+        if init is not None:
+            return self._params(init)
+        if self.params is not None:
+            return self.params
+        return kernel_ops.default_init(self.kind, d=self.X.shape[1],
+                                       device=self.device)
+
+    def sample_hyperparams(self, *, num_samples=512, num_chains=8,
+                           num_warmup=256, sampler="nuts", generator=None,
+                           draws=None, init=None, max_tree_depth=8,
+                           chain_block=0):
+        """Posterior over hyperparameters via NUTS/HMC (inference/
+        sampling), the chains one batch on this GP's device. generator: a
+        torch.Generator on that device (seeded 0 when None); or draws, an
+        hmc.Draws replaying given standard normals and uniforms in the
+        samplers' order. Returns a dict with "samples" (the params tree,
+        (num_samples, num_chains, ...) leaves) and the sampler's
+        diagnostics.
+
+        With normalize_y=True the posterior is over the STANDARDIZED
+        model's hyperparameters (signal/noise variances are in units of
+        sigma_y^2; lengthscales are unaffected)."""
+        from cugp_tpu_torch.inference import sampling
+
+        return sampling.sample_hyperparams(
+            self._sampler_init(init), self.X, self.y, kind=self.kind,
+            jitter=self.jitter, method=self.method, num_samples=num_samples,
+            num_chains=num_chains, num_warmup=num_warmup, sampler=sampler,
+            rng=self._rng(generator, draws), max_tree_depth=max_tree_depth,
+            chain_block=chain_block)
+
+    def fit_vi(self, *, steps=2000, learning_rate=0.01, rank="meanfield",
+               num_mc=8, generator=None, draws=None, init=None):
+        """Variational posterior over hyperparameters (inference/vi), the
+        ELBO's num_mc draws one batch on this GP's device; generator and
+        draws as in sample_hyperparams. Same normalize_y caveat as
+        sample_hyperparams."""
+        from cugp_tpu_torch.inference import vi
+
+        return vi.fit(
+            self._sampler_init(init), self.X, self.y, kind=self.kind,
+            jitter=self.jitter, method=self.method, steps=steps,
+            learning_rate=learning_rate, rank=rank, num_mc=num_mc,
+            rng=self._rng(generator, draws))
 
     def fit_iterative(self, X, y, *, steps=50, learning_rate=0.05,
                       init=None, generator=None, log_prior=None, **kw):

@@ -8,6 +8,11 @@
 // >= n_true; a cross build writes 0 beyond the true extent. The output is
 // exactly m x n with leading dimension ldo; [sf2, diag_add, alpha] are
 // read through a device pointer, so a fit loop never syncs the host.
+// A batch of builds (chains or Monte Carlo draws as a leading dimension,
+// the counterpart of the Pallas call under vmap, cov_pallas.py:134-138)
+// is one launch pair: one pre-pass over every element, then the
+// persistent CTAs walk (element, tile) pairs. Element b has its own rows
+// and scalars [sf2, diag_add, alpha]_b and the same m, n, n1/n2_true.
 //
 // What bounds it on the H100: the m n fp32 store (256 MB at 8000^2, 4.29
 // GB at 32768^2). At the byte bound the card issues only ~40
@@ -42,8 +47,9 @@
 //             tile stores from a double-buffered shared tile by 22%.
 //
 // No atomics: a launch is bitwise reproducible, and an entry's value does
-// not depend on m, n, its tile or the store route, so a row block built
-// alone equals the same rows of a larger build. Measured on an H100 80GB
+// not depend on m, n, its tile, the store route or the batch, so a row
+// block built alone equals the same rows of a larger build, and each
+// element of a batch equals its own 2-D build. Measured on an H100 80GB
 // HBM3 at 700 W (chip_smoke.py phase 2; PERF.md): 1.39-1.40 ms at
 // 32768^2, d = 8, against a 1.283 ms byte bound and 1.31 ms for
 // out.fill_(1.0) on the same output: the write rate bounds it.
@@ -68,14 +74,24 @@ constexpr int RW = BM / WARPS;       // 16 rows a warp, and a thread
 constexpr int ROW_PAD = BM;          // scratch rows padded to this
 
 struct Args {
-  const float* x1;  // (m_pad, dp) padded rows of X1
+  const float* x1;  // (m_pad, dp) padded rows of X1, element 0
   const float* h1;  // (m_pad,) their half-norms
   const float* x2;  // (n_pad, dp), or x1 for a square build of one tensor
   const float* h2;
-  const float* scal;
+  const float* scal;  // (batch, 3)
   float* out;
   long long ldo;
-  int m, n, dp, n1, n2, square, tiles_n, tiles;
+  long long sstride;  // scratch floats an element (x1, h1, x2, h2)
+  long long ostride;  // output floats an element
+  int m, n, dp, n1, n2, square, tiles_n, tiles, total;  // total: batch tiles
+};
+
+// One element's padded rows and half-norms
+struct Rows {
+  const float* x1;
+  const float* h1;
+  const float* x2;
+  const float* h2;
 };
 
 // One output: rbf applies sf2 here (entry() gives K / sf2)
@@ -109,22 +125,23 @@ __device__ __forceinline__ void put4(float* p, const float (&v)[4]) {
 // cross sums of RH rows at a time formed first, a 4-feature group at a
 // time (the columns' features are read once for each RH rows).
 template <int KIND, int DP4, bool MASKED, class Put>
-__device__ __forceinline__ void tile(const Args& a, int i, int j, float sf2,
-                                     float diag_add, float alpha, Put&& put) {
+__device__ __forceinline__ void tile(const Args& a, const Rows& e, int i,
+                                     int j, float sf2, float diag_add,
+                                     float alpha, Put&& put) {
   constexpr int RH = DP4 > 0 ? RW : 8;
   const int dp = DP4 > 0 ? 4 * DP4 : a.dp;
-  const float* x1 = a.x1 + static_cast<long long>(i) * dp;
-  const float* x2 = a.x2 + static_cast<long long>(j) * dp;
+  const float* x1 = e.x1 + static_cast<long long>(i) * dp;
+  const float* x2 = e.x2 + static_cast<long long>(j) * dp;
   float hi[RW];
 #pragma unroll
   for (int q = 0; q < RW; q += 4) {
-    const float4 t = ldg4(a.h1 + i + q);
+    const float4 t = ldg4(e.h1 + i + q);
     hi[q] = t.x;
     hi[q + 1] = t.y;
     hi[q + 2] = t.z;
     hi[q + 3] = t.w;
   }
-  const float4 h4 = ldg4(a.h2 + j);
+  const float4 h4 = ldg4(e.h2 + j);
   const float hj[4] = {h4.x, h4.y, h4.z, h4.w};
   float4 b[4][DP4 > 0 ? DP4 : 1];  // DP4 > 0: the columns' features
 #pragma unroll
@@ -206,18 +223,22 @@ __device__ __forceinline__ bool interior(const Args& a, int ti, int tj) {
 template <int KIND, int DP4, bool V4>
 __global__ void __launch_bounds__(THREADS, 2) cov_tile_kernel(Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float sf2 = a.scal[0], diag_add = a.scal[1], alpha = a.scal[2];
-  for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+  for (int bt = blockIdx.x; bt < a.total; bt += gridDim.x) {
+    const int b = bt / a.tiles, t = bt - b * a.tiles;
+    const long long so = b * a.sstride;
+    const Rows e{a.x1 + so, a.h1 + so, a.x2 + so, a.h2 + so};
+    const float* sc = a.scal + 3 * b;
+    const float sf2 = sc[0], diag_add = sc[1], alpha = sc[2];
     const int ti = t / a.tiles_n, tj = t - ti * a.tiles_n;
     const int i = ti * BM + RW * warp, j = tj * BN + 4 * lane;
-    float* row0 = a.out + static_cast<long long>(i) * a.ldo + j;
+    float* row0 = a.out + b * a.ostride + static_cast<long long>(i) * a.ldo + j;
     if (interior(a, ti, tj)) {
-      tile<KIND, DP4, false>(a, i, j, sf2, diag_add, alpha,
+      tile<KIND, DP4, false>(a, e, i, j, sf2, diag_add, alpha,
                              [&](int r, const float (&v)[4]) {
                                put4<V4>(row0 + r * a.ldo, v);
                              });
     } else {
-      tile<KIND, DP4, true>(a, i, j, sf2, diag_add, alpha,
+      tile<KIND, DP4, true>(a, e, i, j, sf2, diag_add, alpha,
                             [&](int r, const float (&v)[4]) {
                               if (i + r >= a.m) return;
                               float* p = row0 + r * a.ldo;
@@ -233,18 +254,23 @@ __global__ void __launch_bounds__(THREADS, 2) cov_tile_kernel(Args a) {
   }
 }
 
+// Every element's rows: element b's X1 at x1 + b x1s and X2 at x2 + b x2s,
+// its scratch at xs1 (h1, xs2, h2) + b ss.
 __global__ void __launch_bounds__(THREADS)
 cov_prep(const float* __restrict__ x1, const float* __restrict__ x2,
          float* __restrict__ xs1, float* __restrict__ h1,
          float* __restrict__ xs2, float* __restrict__ h2, int m, int n,
-         int d, int dp, int m_pad, int n_pad, float scale) {
+         int d, int dp, int m_pad, int n_pad, float scale, int batch,
+         long long x1s, long long x2s, long long ss) {
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const long long total = static_cast<long long>(m_pad) + n_pad;
+  const long long rows = static_cast<long long>(m_pad) + n_pad;
+  const long long total = rows * batch;
   for (long long e = static_cast<long long>(blockIdx.x) * THREADS +
                      threadIdx.x;
        e < total; e += stride) {
-    if (e < m_pad) prep_row(x1, xs1, h1, e, m, d, dp, scale);
-    else prep_row(x2, xs2, h2, e - m_pad, n, d, dp, scale);
+    const long long b = e / rows, r = e - b * rows, so = b * ss;
+    if (r < m_pad) prep_row(x1 + b * x1s, xs1 + so, h1 + so, r, m, d, dp, scale);
+    else prep_row(x2 + b * x2s, xs2 + so, h2 + so, r - m_pad, n, d, dp, scale);
   }
 }
 
@@ -259,7 +285,7 @@ cudaError_t launch_tiles(const Args& a, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   void* args[] = {const_cast<Args*>(&a)};
   return cudaLaunchKernel(reinterpret_cast<const void*>(KERN),
-                          dim3(a.tiles < cap ? a.tiles : cap), dim3(THREADS),
+                          dim3(a.total < cap ? a.total : cap), dim3(THREADS),
                           args, 0, s);
 }
 
@@ -296,53 +322,60 @@ extern "C" const char* cugp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Floats of the scratch cugp_cov takes (when X2 is X1 it uses less);
-// -1 past INT_MAX.
+// Floats of the scratch cugp_cov takes an element of the batch (when X2
+// is X1 it uses less); -1 past INT_MAX.
 extern "C" int cugp_cov_scratch(int m, int n, int d) {
   if (m <= 0 || n <= 0 || d <= 0) return 0;
   const long long f = plan(m, n, d, 0).floats;
   return f > INT_MAX ? -1 : static_cast<int>(f);
 }
 
-// x1 (m, d) and x2 (n, d) row-major fp32, already divided by the
-// lengthscale (x2 == x1 with m == n: one tensor, one pre-pass); scal =
-// [sf2, diag_add, alpha] on the device; out (m, n) with leading dimension
-// ldo; scratch: cugp_cov_scratch floats, 16-byte aligned. kind: 0 rbf,
-// 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. The stores are
-// 16-byte ones where ldo % 4 == 0 and out is 16-byte aligned, else 4-byte
-// ones (cov_cuda.route names the rule). Two launches: the pre-pass, then
-// the tiles.
+// A batch of builds: element b's x1 (m, d) at x1 + b x1_stride and x2
+// (n, d) at x2 + b x2_stride, row-major fp32, already divided by the
+// lengthscale (x2 == x1 with m == n and equal strides: one tensor, one
+// pre-pass); scal (batch, 3) = [sf2, diag_add, alpha] on the device; out
+// element b (m, n) at out + b out_stride, leading dimension ldo; scratch:
+// batch x cugp_cov_scratch floats, 16-byte aligned. kind: 0 rbf, 1
+// matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. The stores are
+// 16-byte ones where ldo % 4 == 0, out_stride % 4 == 0 and out is 16-byte
+// aligned, else 4-byte ones (cov_cuda.route names the rule). Two
+// launches: the pre-pass, then the tiles; a 2-D build is batch 1.
 extern "C" int cugp_cov(const float* x1, const float* x2, const float* scal,
                         float* out, float* scratch, int m, int n, int d,
                         long long ldo, int kind, int square, int n1_true,
-                        int n2_true, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
+                        int n2_true, int batch, long long x1_stride,
+                        long long x2_stride, long long out_stride,
+                        void* stream) {
+  if (m <= 0 || n <= 0 || batch <= 0) return 0;
   if (d <= 0 || kind < RBF || kind > LINEAR || ldo < n ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0)
     return cudaErrorInvalidValue;
-  const bool v4 = ldo % 4 == 0 && (reinterpret_cast<size_t>(out) & 15) == 0;
-  const int same = x1 == x2 && m == n;
+  const bool v4 = ldo % 4 == 0 && (batch == 1 || out_stride % 4 == 0) &&
+                  (reinterpret_cast<size_t>(out) & 15) == 0;
+  const int same = x1 == x2 && m == n && x1_stride == x2_stride;
   const Plan p = plan(m, n, d, same);
   const long long tiles_n = (n + BN - 1) / BN;
   const long long tiles = (m + BM - 1) / BM * tiles_n;
-  if (plan(m, n, d, 0).floats > INT_MAX || tiles > INT_MAX)
+  if (plan(m, n, d, 0).floats > INT_MAX || tiles * batch > INT_MAX)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* xs1 = scratch;
   float* h1 = xs1 + static_cast<long long>(p.m_pad) * p.dp;
   float* xs2 = same ? xs1 : h1 + p.m_pad;
   float* h2 = same ? h1 : xs2 + static_cast<long long>(p.n_pad) * p.dp;
-  const long long rows = static_cast<long long>(p.m_pad) + p.n_pad;
+  const long long rows = (static_cast<long long>(p.m_pad) + p.n_pad) * batch;
   const int blocks = static_cast<int>(
       rows / THREADS + 1 < 1024 ? rows / THREADS + 1 : 1024);
   cov_prep<<<blocks, THREADS, 0, s>>>(x1, x2, xs1, h1, xs2, h2, m, n, d,
                                       p.dp, p.m_pad, p.n_pad,
-                                      kind == RBF ? SQRT_LOG2E : 1.0f);
+                                      kind == RBF ? SQRT_LOG2E : 1.0f, batch,
+                                      x1_stride, x2_stride, p.floats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{xs1, h1, xs2, h2, scal, out, ldo, m, n, p.dp,
-               n1_true, n2_true, square, static_cast<int>(tiles_n),
-               static_cast<int>(tiles)};
+  const Args a{xs1, h1, xs2, h2, scal, out, ldo, p.floats, out_stride,
+               m, n, p.dp, n1_true, n2_true, square,
+               static_cast<int>(tiles_n), static_cast<int>(tiles),
+               static_cast<int>(tiles * batch)};
   switch (kind) {
     case RBF: err = launch_kind<RBF>(a, v4, s); break;
     case MATERN12: err = launch_kind<MATERN12>(a, v4, s); break;

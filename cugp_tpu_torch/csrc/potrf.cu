@@ -4,7 +4,8 @@
 // the recursive blocked Cholesky. The Pallas kernel holds the whole block
 // in VMEM and needs n % 128 == 0; this one takes any n <= 1024 with a
 // leading dimension, so it factors a diagonal block of the big buffer in
-// place, and a leading batch one block after another.
+// place, and a leading batch (the Pallas kernel's vmap, chol_pallas.py:
+// 182-196) by one of two routes.
 //
 // What bounds it on the H100: not FMA issue. A 1024^2 block is n^3/3 =
 // 358 MFLOP, 5 us at the card's fp32 peak, but a Cholesky is a chain of
@@ -35,7 +36,19 @@
 // Each phase ends in a grid barrier (cooperative_groups); tiles other
 // CTAs wrote in this launch are read past L1 (__ldcg), which is not
 // coherent across SMs. A tile's sums run in a fixed order whoever owns
-// it, so the result does not depend on G. Only the lower triangle is
+// it, so the result does not depend on G.
+//
+// Two routes for a batch of blocks. The cooperative route above factors
+// them one after another, each over the whole grid: right for one block
+// or a few. The batch route (a batch of hyperparameter chains, 256
+// blocks of n = 512) launches one CTA a block, an ordinary launch: the
+// same code at G = 1, block barriers (__syncthreads) where the
+// cooperative route has grid barriers, so every block's tiles run on one
+// SM and the blocks run side by side. Since the result does not depend
+// on G, the two routes give the same bits (chip_smoke.py phase 2 checks
+// it). cugp_potrf picks the batch route from the batch and the card's SM
+// count (BATCH_MIN_SM_SHARE) and says which route it takes through
+// cugp_potrf_route. Only the lower triangle is
 // read (callers pass SYRK-lower results whose upper triangle is stale);
 // zeros are written above the diagonal at the end; nothing outside the
 // block is written. A non-positive pivot gives sqrtf of a negative
@@ -243,6 +256,17 @@ __device__ void update_tile(float* a, long long lda, int n, int i0, int j0,
   __syncthreads();  // before the next tile's staging overwrites Ct
 }
 
+// A barrier over the CTAs that share a block: the whole grid (the
+// cooperative route) or this CTA (the batch route).
+template <bool BATCH>
+__device__ __forceinline__ void step_barrier() {
+  if constexpr (BATCH) __syncthreads();
+  else cg::this_grid().sync();
+}
+
+// BATCH = false: the cooperative route, gridDim.x CTAs on each block in
+// turn. BATCH = true: CTA b factors block b alone (G = 1).
+template <bool BATCH>
 __global__ void __launch_bounds__(THREADS)
 potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
              int batch) {
@@ -251,11 +275,11 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
   float* Ls = smem;
   float* colbuf = Ls + T * LD1;
   float* rinv = colbuf + 2 * T;
-  cg::grid_group grid = cg::this_grid();
   const int nt = (n + T - 1) / T;
-  const int ctas = gridDim.x, me = blockIdx.x;
+  const int ctas = BATCH ? 1 : gridDim.x, me = BATCH ? 0 : blockIdx.x;
 
-  for (int b = 0; b < batch; ++b) {
+  const int b0 = BATCH ? static_cast<int>(blockIdx.x) : 0;
+  for (int b = b0; b < (BATCH ? b0 + 1 : batch); ++b) {
     float* a = a_base + b * batch_stride;
     for (int k = 0; k < nt; ++k) {
       const int k0 = k * T, kb = min(T, n - k0);
@@ -280,7 +304,7 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
         if (me == 0) write_diag(a, lda, k0, kb, Ls);
         break;
       }
-      grid.sync();
+      step_barrier<BATCH>();
       if (me == 0) {
         write_diag(a, lda, k0, kb, Ls);
         __syncthreads();
@@ -294,7 +318,7 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
         update_tile(a, lda, n, k0 + (ii + 1) * T, k0 + (jj + 1) * T, k0, kb,
                     smem);
       }
-      grid.sync();
+      step_barrier<BATCH>();
     }
     // zeros above the diagonal (never read by the steps)
     for (int r = me; r < n; r += ctas)
@@ -303,14 +327,36 @@ potrf_kernel(float* a_base, long long lda, long long batch_stride, int n,
   }
 }
 
+// The batch route once batch >= SMs / BATCH_MIN_SM_SHARE: 9 blocks on an
+// H100's 132 SMs. At n = 512 one CTA takes ~1.3 ms a block whatever the
+// batch up to 64, the cooperative route ~0.16 ms a block one after
+// another, so they cross between 8 and 16 blocks (1.2925 against 1.3309
+// ms at 8, 2.5681 against 1.3231 at 16; H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 2).
+constexpr int BATCH_MIN_SM_SHARE = 16;
+
+enum Route { AUTO = 0, COOPERATIVE = 1, BATCHED = 2 };
+
 }  // namespace
 
-// The grid the launcher takes for an (n, n) block: min(co-resident CTAs,
-// trailing tiles of step 0), at least 1.
+// The route cugp_potrf takes for batch blocks of (n, n) when asked for
+// AUTO: 1 the cooperative route, 2 the batch route.
+extern "C" int cugp_potrf_route(int n, int batch, int* route) {
+  int sms = 0;
+  cudaError_t err = cugp::sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  (void)n;
+  *route = batch > 1 && batch * BATCH_MIN_SM_SHARE >= sms ? BATCHED
+                                                          : COOPERATIVE;
+  return 0;
+}
+
+// The grid the cooperative route takes for an (n, n) block: min(co-resident
+// CTAs, trailing tiles of step 0), at least 1.
 extern "C" int cugp_potrf_grid(int n, int* grid) {
   int cap = 0;
   cudaError_t err =
-      cugp::resident_ctas<potrf_kernel, THREADS, SMEM_BYTES>(&cap);
+      cugp::resident_ctas<potrf_kernel<false>, THREADS, SMEM_BYTES>(&cap);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int m = (n + T - 1) / T - 1;
   const int tiles = m * (m + 1) / 2;
@@ -320,15 +366,29 @@ extern "C" int cugp_potrf_grid(int n, int* grid) {
 
 // a: batch blocks of (n, n) fp32, row-major with leading dimension lda,
 // block b at a + b * batch_stride; factored in place (lower L, zeros above).
+// route: 0 auto (cugp_potrf_route), 1 cooperative, 2 batch; both routes
+// give the same bits.
 extern "C" int cugp_potrf(float* a, long long lda, long long batch_stride,
-                          int n, int batch, void* stream) {
+                          int n, int batch, int route, void* stream) {
   if (n <= 0 || batch <= 0) return 0;
-  if (n > MAXN || lda < n) return cudaErrorInvalidValue;
-  int grid = 0;
-  int err = cugp_potrf_grid(n, &grid);
-  if (err != 0) return err;
+  if (n > MAXN || lda < n || route < AUTO || route > BATCHED)
+    return cudaErrorInvalidValue;
+  int err = 0;
+  if (route == AUTO) {
+    err = cugp_potrf_route(n, batch, &route);
+    if (err != 0) return err;
+  }
   void* args[] = {&a, &lda, &batch_stride, &n, &batch};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == BATCHED) {
+    potrf_kernel<true><<<batch, THREADS, SMEM_BYTES, s>>>(a, lda, batch_stride,
+                                                           n, batch);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int grid = 0;
+  err = cugp_potrf_grid(n, &grid);
+  if (err != 0) return err;
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(potrf_kernel), dim3(grid),
-      dim3(THREADS), args, SMEM_BYTES, static_cast<cudaStream_t>(stream)));
+      reinterpret_cast<const void*>(potrf_kernel<false>), dim3(grid),
+      dim3(THREADS), args, SMEM_BYTES, s));
 }

@@ -9,6 +9,12 @@
 // column strides, and X overwrites it in place: a right-side solve
 // X L^T = B is L X^T = B^T, the same call with B's strides swapped.
 //
+// A batch (chains as a leading dimension, the Pallas call under vmap) is
+// one launch of each pass with the element as the grid's y index:
+// element e's L, B and inverted tiles at fixed strides. Every CTA does
+// the work it does in a 2-D call, so an element's result equals its own
+// 2-D solve bitwise.
+//
 // The shape is the TPU kernel's: each T x T diagonal tile of L is
 // inverted once (trtri pass), and every panel of the solve is a strip
 // update R_p = B_p - op(L)[p, solved] X[solved] followed by the product
@@ -199,8 +205,11 @@ struct Stream {
 // trtri pass: W_p = L_pp^{-1} (or its transpose), one CTA per tile.
 
 __global__ void __launch_bounds__(TRTRI_THREADS)
-trsm_trtri_kernel(const float* __restrict__ l, long long ldl, int n,
-                  int transpose, float* __restrict__ winv) {
+trsm_trtri_kernel(const float* __restrict__ l, long long ldl, long long lbs,
+                  int n, int transpose, float* __restrict__ winv,
+                  long long wbs) {
+  l += blockIdx.y * lbs;
+  winv += blockIdx.y * wbs;
   // the tile as [[A, 0], [C, D]] with 32 x 32 blocks; its inverse is
   // [[A^{-1}, 0], [-D^{-1} C A^{-1}, D^{-1}]]
   static_assert(T == 64 && TRTRI_THREADS == 32 * 32, "2 x 2 blocks of 32");
@@ -264,8 +273,9 @@ trsm_trtri_kernel(const float* __restrict__ l, long long ldl, int n,
 
 template <bool TR>
 __global__ void __launch_bounds__(NARROW_THREADS)
-trsm_narrow_kernel(const float* l, long long ldl, const float* winv,
-                   float* b, long long rs, long long cs, int n, int vec) {
+trsm_narrow_kernel(const float* l, long long ldl, long long lbs,
+                   const float* winv, long long wbs, float* b, long long bbs,
+                   long long rs, long long cs, int n, int vec) {
   constexpr int NT = NARROW_THREADS;
   extern __shared__ float4 smem4[];
   float4* ring = smem4;  // piece j of stage s: ring[(4 s + j) NT + tid]
@@ -274,7 +284,9 @@ trsm_narrow_kernel(const float* l, long long ldl, const float* winv,
   float* rsm = xs + np;  // R_p
   const int tid = threadIdx.x;
   const int mg = tid % KG, r0 = 4 * (tid / KG);
-  b += blockIdx.x * cs;
+  l += blockIdx.y * lbs;
+  winv += blockIdx.y * wbs;
+  b += blockIdx.y * bbs + blockIdx.x * cs;
 
   for (int i = tid; i < np; i += NT) xs[i] = i < n ? b[i * rs] : 0.0f;
 
@@ -360,7 +372,8 @@ trsm_narrow_kernel(const float* l, long long ldl, const float* winv,
 
 template <int W, bool TR>
 __global__ void __launch_bounds__(wide_threads(W))
-trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
+trsm_wide_kernel(const float* l, long long ldl, long long lbs,
+                 const float* winv, long long wbs, float* b, long long bbs,
                  long long rs, long long cs, int n, int k, int vec) {
   constexpr int MR = wide_mr(W), MC = MICRO_COLS, THR = wide_threads(W);
   extern __shared__ float4 smem4[];
@@ -370,6 +383,9 @@ trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
   float* rsm = xs + np * W;                // rsm[r * W + c]
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * W, kc = min(W, k - c0);
+  l += blockIdx.y * lbs;
+  winv += blockIdx.y * wbs;
+  b += blockIdx.y * bbs;
 
   for (int e = tid; e < np * W; e += THR) {
     int i, c;
@@ -475,11 +491,12 @@ trsm_wide_kernel(const float* l, long long ldl, const float* winv, float* b,
 
 struct Args {
   const float* l;
-  long long ldl;
+  long long ldl, lbs;  // lbs, wbs, bbs: an element's stride in the batch
   const float* winv;
+  long long wbs;
   float* b;
-  long long rs, cs;
-  int n, k, vec;
+  long long bbs, rs, cs;
+  int n, k, vec, batch;
   cudaStream_t stream;
 };
 
@@ -500,8 +517,9 @@ cudaError_t launch_narrow(const Args& a) {
   cudaError_t err =
       cugp::raise_smem_once<trsm_narrow_kernel<TR>>(narrow_smem(MAXN));
   if (err != cudaSuccess) return err;
-  trsm_narrow_kernel<TR><<<a.k, NARROW_THREADS, narrow_smem(a.n), a.stream>>>(
-      a.l, a.ldl, a.winv, a.b, a.rs, a.cs, a.n, a.vec);
+  trsm_narrow_kernel<TR><<<dim3(a.k, a.batch), NARROW_THREADS,
+                           narrow_smem(a.n), a.stream>>>(
+      a.l, a.ldl, a.lbs, a.winv, a.wbs, a.b, a.bbs, a.rs, a.cs, a.n, a.vec);
   return cudaGetLastError();
 }
 
@@ -511,48 +529,61 @@ cudaError_t launch_wide(const Args& a) {
       cugp::raise_smem_once<trsm_wide_kernel<W, TR>>(wide_smem(W, MAXN));
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((a.k + W - 1) / W);
-  trsm_wide_kernel<W, TR><<<grid, wide_threads(W), wide_smem(W, a.n),
-                            a.stream>>>(a.l, a.ldl, a.winv, a.b, a.rs, a.cs,
-                                        a.n, a.k, a.vec);
+  trsm_wide_kernel<W, TR><<<dim3(grid, a.batch), wide_threads(W),
+                            wide_smem(W, a.n), a.stream>>>(
+      a.l, a.ldl, a.lbs, a.winv, a.wbs, a.b, a.bbs, a.rs, a.cs, a.n, a.k,
+      a.vec);
   return cudaGetLastError();
 }
 
-// The widest slab whose CTAs still cover the SMs (all but 1/32 of them).
+// The widest slab whose CTAs (over the whole batch) still cover the SMs
+// (all but 1/32 of them). A column's result does not depend on W.
 template <bool TR>
 cudaError_t launch_wide_for(const Args& a) {
   int sms = 0;
   cudaError_t err = cugp::sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const int need = sms - sms / 32;
-  if ((a.k + 31) / 32 >= need) return launch_wide<32, TR>(a);
-  if ((a.k + 15) / 16 >= need) return launch_wide<16, TR>(a);
+  const long long need = sms - sms / 32;
+  if (static_cast<long long>((a.k + 31) / 32) * a.batch >= need)
+    return launch_wide<32, TR>(a);
+  if (static_cast<long long>((a.k + 15) / 16) * a.batch >= need)
+    return launch_wide<16, TR>(a);
   return launch_wide<8, TR>(a);
 }
 
 }  // namespace
 
 // Floats of the scratch cugp_trsm needs for the inverted diagonal tiles
-// of an (n, n) L.
+// of one (n, n) L (a batch takes this many an element).
 extern "C" int cugp_trsm_scratch(int n) {
   return (n + T - 1) / T * T * T;
 }
 
-// l: (n, n) lower, leading dimension ldl. b: (n, k), element (i, j) at
-// b[i * row_stride + j * col_stride], overwritten with op(L)^{-1} B.
-// scratch: cugp_trsm_scratch(n) floats on the device, 16-byte aligned.
+// A batch of solves: element e's L (n, n) lower at l + e * l_batch_stride,
+// leading dimension ldl; its B (n, k), entry (i, j) at b[e *
+// b_batch_stride + i * row_stride + j * col_stride], overwritten with
+// op(L)^{-1} B. scratch: batch x cugp_trsm_scratch(n) floats on the
+// device, 16-byte aligned. A 2-D solve is batch 1.
 extern "C" int cugp_trsm(const float* l, long long ldl, float* b,
                          long long row_stride, long long col_stride, int n,
-                         int k, int transpose, float* scratch, void* stream) {
-  if (n <= 0 || k <= 0) return 0;
-  if (n > MAXN || ldl < n || (reinterpret_cast<size_t>(scratch) & 15) != 0)
+                         int k, int transpose, float* scratch, int batch,
+                         long long l_batch_stride, long long b_batch_stride,
+                         void* stream) {
+  if (n <= 0 || k <= 0 || batch <= 0) return 0;
+  if (n > MAXN || ldl < n || batch > 65535 ||
+      (reinterpret_cast<size_t>(scratch) & 15) != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nt = (n + T - 1) / T;
-  trsm_trtri_kernel<<<nt, TRTRI_THREADS, 0, s>>>(l, ldl, n, transpose, scratch);
+  const long long wbs = cugp_trsm_scratch(n);
+  trsm_trtri_kernel<<<dim3(nt, batch), TRTRI_THREADS, 0, s>>>(
+      l, ldl, l_batch_stride, n, transpose, scratch, wbs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = (reinterpret_cast<size_t>(l) & 15) == 0 && ldl % 4 == 0;
-  const Args a{l, ldl, scratch, b, row_stride, col_stride, n, k, vec, s};
+  const int vec = (reinterpret_cast<size_t>(l) & 15) == 0 && ldl % 4 == 0 &&
+                  (batch == 1 || l_batch_stride % 4 == 0);
+  const Args a{l, ldl, l_batch_stride, scratch, wbs, b, b_batch_stride,
+               row_stride, col_stride, n, k, vec, batch, s};
   if (k <= NARROW_MAX)
     err = transpose ? launch_narrow<true>(a) : launch_narrow<false>(a);
   else

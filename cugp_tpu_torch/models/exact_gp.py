@@ -4,6 +4,11 @@ Plain functions composing the ops tier (covariance build, Cholesky,
 triangular solves) into the log-marginal likelihood, its gradient
 (autograd through the Cholesky and solve rules) and the posterior
 predictive. Tensors stay on the device they arrive on.
+
+``safe_cholesky``, ``_factorize`` and ``log_marginal_likelihood`` also
+take hyperparameters whose leaves carry a leading batch B (the samplers'
+chains, as ``jax.vmap`` of the JAX functions): one batched covariance
+build, one batched Cholesky and batched solves give the (B,) LMLs.
 """
 
 from __future__ import annotations
@@ -27,14 +32,35 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
     failed attempt multiplies the added diagonal jitter by 100x. The JAX
     version decides with lax.cond on the device; here the is-finite check
     reads one scalar back to the host: one sync per factorization.
+
+    A batch K (B, n, n) with sf2 (B,) decides per element, as vmap of the
+    JAX ladder does: an element whose factor is not finite gets the
+    level's jitter, the others keep theirs (0 for an element that
+    factored at once), and the batch is factored again. Elements that
+    keep their jitter come out with the same bits as before, since every
+    element of a batched factorization is computed on its own; only the
+    last factorization is in the autograd graph, so no element's gradient
+    passes through a failed factor. One host read per ladder level for
+    the whole batch.
     """
     L = chol_ops.cholesky(K, method=method)
+    extra = None
     for i in range(1, max_attempts):
-        if bool(torch.isfinite(torch.diagonal(L).sum())):
+        if K.ndim == 2:
+            if bool(torch.isfinite(torch.diagonal(L).sum())):
+                break
+            extra = jitter0 * (100.0 ** i) * sf2
+            eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+            L = chol_ops.cholesky(K + extra * eye, method=method)
+            continue
+        ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1).sum(-1))
+        if bool(ok.all()):  # the level's host read
             break
-        extra = jitter0 * (100.0 ** i) * sf2
+        if extra is None:
+            extra = torch.zeros_like(sf2)
+        extra = torch.where(ok, extra, jitter0 * (100.0 ** i) * sf2)
         eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-        L = chol_ops.cholesky(K + extra * eye, method=method)
+        L = chol_ops.cholesky(K + extra[:, None, None] * eye, method=method)
     return L
 
 
@@ -47,6 +73,8 @@ def _factorize(params, X, y, kind, jitter, method, safe=True, n_true=None):
         L = safe_cholesky(K, sf2, method=method, jitter0=max(jitter, 1e-6))
     else:
         L = chol_ops.cholesky(K, method=method)
+    if L.ndim == 3 and y.ndim == 1:  # a batch: y for every element
+        y = y.expand(L.shape[0], -1).contiguous()
     alpha = trsm_ops.cho_solve(L, y, method=method)
     return L, alpha
 
@@ -56,12 +84,14 @@ def log_marginal_likelihood(params, X, y, kind="rbf", jitter=1e-6,
     """LML = -1/2 y^T alpha - sum_i log L_ii - N/2 log 2pi.
 
     Padded inputs: zero-pad X rows and y and pass the true count as
-    n_true; the result is the unpadded LML.
+    n_true; the result is the unpadded LML. Params with a leading batch
+    B give the (B,) LMLs.
     """
     L, alpha = _factorize(params, X, y, kind, jitter, method, safe, n_true)
     n = n_true if n_true is not None else y.shape[-1]
-    logdet_half = torch.sum(torch.log(torch.diagonal(L)))
-    quad = torch.sum(y * alpha)
+    logdet_half = torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                            dim=-1)
+    quad = torch.sum(y * alpha, dim=-1)
     return -0.5 * quad - logdet_half - 0.5 * n * LOG2PI
 
 

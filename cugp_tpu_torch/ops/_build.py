@@ -34,17 +34,23 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of csrc/*.cu (every launcher returns its cudaError_t)
 _SIGNATURES = {
     # x1, x2, scal, out, scratch, m, n, d, ldo, kind, square, n1_true,
-    # n2_true, stream
-    "cugp_cov": [_p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _p],
-    # m, n, d: floats of the scratch cugp_cov takes (-1: too many)
+    # n2_true, batch, x1_stride, x2_stride, out_stride, stream
+    "cugp_cov": [_p, _p, _p, _p, _p, _i, _i, _i, _ll, _i, _i, _i, _i, _i,
+                 _ll, _ll, _ll, _p],
+    # m, n, d: floats of the scratch cugp_cov takes an element (-1: too
+    # many)
     "cugp_cov_scratch": [_i, _i, _i],
-    # a, lda, batch_stride, n, batch, stream
-    "cugp_potrf": [_p, _ll, _ll, _i, _i, _p],
-    # n, out: the grid cugp_potrf launches for an (n, n) block
+    # a, lda, batch_stride, n, batch, route (0 auto, 1 cooperative,
+    # 2 batch), stream
+    "cugp_potrf": [_p, _ll, _ll, _i, _i, _i, _p],
+    # n, out: the grid the cooperative route launches for an (n, n) block
     "cugp_potrf_grid": [_i, ctypes.POINTER(_i)],
-    # l, ldl, b, row_stride, col_stride, n, k, transpose, scratch, stream
-    "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p, _p],
-    # n: floats of the scratch cugp_trsm takes for an (n, n) L
+    # n, batch, out: the route cugp_potrf takes when asked for auto
+    "cugp_potrf_route": [_i, _i, ctypes.POINTER(_i)],
+    # l, ldl, b, row_stride, col_stride, n, k, transpose, scratch, batch,
+    # l_batch_stride, b_batch_stride, stream
+    "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p, _i, _ll, _ll, _p],
+    # n: floats of the scratch cugp_trsm takes for one (n, n) L
     "cugp_trsm_scratch": [_i],
     # x, v, scal, out, scratch, n, d, r, v_row_stride, v_col_stride, ldo,
     # kind, stream

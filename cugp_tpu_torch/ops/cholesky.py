@@ -19,6 +19,11 @@ package leaves them to XLA.
 The backward is Murray's Cholesky rule (Murray 2016, eq. 8-10) as an
 autograd Function; its two n x n solves run through the recursive
 ``solve_ltx_``, so they also use the TRSM kernel on CUDA.
+
+A batch (B, n, n) (chains or Monte Carlo draws as a leading dimension)
+runs the same recursion with batched SYRK/GEMM updates (``baddbmm_``),
+potrf's batch route at the base and the batched TRSM; the backward
+takes the batch too.
 """
 
 from __future__ import annotations
@@ -39,16 +44,16 @@ def _syrk_lower_(a, p):
     """a -= p p^T on the (block) lower triangle; the upper is left stale."""
     n = a.shape[-1]
     if n <= _SYRK_FULL:
-        a.addmm_(p, p.mT, alpha=-1.0)
+        trsm_ops.sub_mm_(a, p, p.mT)
         return
     m = _split_point(n)
-    _syrk_lower_(a[:m, :m], p[:m])
-    a[m:, :m].addmm_(p[m:], p[:m].mT, alpha=-1.0)
-    _syrk_lower_(a[m:, m:], p[m:])
+    _syrk_lower_(a[..., :m, :m], p[..., :m, :])
+    trsm_ops.sub_mm_(a[..., m:, :m], p[..., m:, :], p[..., :m, :].mT)
+    _syrk_lower_(a[..., m:, m:], p[..., m:, :])
 
 
 def _chol_(a):
-    """Factor the lower triangle of a (n, n) view in place.
+    """Factor the lower triangle of a (n, n) or (B, n, n) view in place.
 
     Diagonal blocks come out lower with zeros above; the strictly-upper
     off-diagonal blocks keep stale values (cholesky zeroes them)."""
@@ -57,16 +62,17 @@ def _chol_(a):
         chol_cuda.potrf_(a)
         return
     m = _split_point(n)
-    _chol_(a[:m, :m])
-    trsm_ops.solve_xlt_(a[:m, :m], a[m:, :m])
-    _syrk_lower_(a[m:, m:], a[m:, :m])
-    _chol_(a[m:, m:])
+    _chol_(a[..., :m, :m])
+    trsm_ops.solve_xlt_(a[..., :m, :m], a[..., m:, :m])
+    _syrk_lower_(a[..., m:, m:], a[..., m:, :m])
+    _chol_(a[..., m:, m:])
 
 
 def _murray_backward(l, l_bar):
     """A_bar = 1/2 L^{-T} (P + P^T) L^{-1}, P = Phi(L^T L_bar)."""
     p = l.mT @ l_bar
-    p = torch.tril(p) - 0.5 * torch.diag_embed(torch.diagonal(p))
+    p = torch.tril(p) - 0.5 * torch.diag_embed(
+        torch.diagonal(p, dim1=-2, dim2=-1))
     sym = p + p.mT
     tmp = trsm_ops.solve_ltx_(l, sym)
     s = trsm_ops.solve_ltx_(l, tmp.mT.contiguous()).mT
@@ -90,9 +96,8 @@ class _Cholesky(torch.autograd.Function):
 
 
 def cholesky(a, method="auto", precision=None):
-    """Lower-triangular Cholesky factor of a symmetric PD (n, n) matrix;
-    only its lower triangle is read (a batch of diagonal blocks goes to
-    chol_cuda.potrf_ directly).
+    """Lower-triangular Cholesky factor of a symmetric PD (n, n) matrix,
+    or of each of a (B, n, n) batch; only the lower triangle is read.
 
     method: 'auto' or 'pallas' — the kernels for CUDA tensors, the plain
     versions for CPU tensors. precision: only true fp32 (None) is ported.
@@ -102,6 +107,7 @@ def cholesky(a, method="auto", precision=None):
         raise NotImplementedError(
             "the TPU precision policies (HIGH, 'mixed', 'mixed_fast') are "
             "not ported; see ROADMAP.md, slice 1")
-    if a.ndim != 2 or a.shape[0] != a.shape[1]:
-        raise ValueError(f"cholesky takes (n, n), got {tuple(a.shape)}")
+    if a.ndim not in (2, 3) or a.shape[-2] != a.shape[-1]:
+        raise ValueError(f"cholesky takes (n, n) or (B, n, n), got "
+                         f"{tuple(a.shape)}")
     return _Cholesky.apply(a)

@@ -18,6 +18,11 @@ on the shape, its tile or the route. Measured on an H100 80GB HBM3 at
 700 W (chip_smoke.py phase 2; PERF.md): 1.39-1.40 ms at 32768^2,
 d = 8, against a 1.283 ms byte bound and 1.31 ms for ``out.fill_(1.0)``.
 
+A batch (xs1 (B, m, d), xs2 (B, n, d), scal (B, 3): chains or Monte Carlo
+draws as a leading dimension) is one launch pair: one pre-pass over
+every element, then the persistent CTAs walk (element, tile) pairs; each
+element equals its own 2-D build bitwise. A 2-D call is the B = 1 case.
+
 ``cov_tile`` launches the kernel for CUDA tensors and runs ``cov_tile_plain``
 (the same formulas in torch ops) for CPU tensors; ``LAUNCHES`` counts its
 calls that launched (a pre-pass and the tiles each). ``CovTile`` is the
@@ -64,23 +69,31 @@ def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
     xs1 (m, d), xs2 (n, d): rows already divided by the lengthscale.
     scal: (3,) tensor [sf2, diag_add, alpha]. Rows >= n1_true / cols >=
     n2_true follow the padding contract (identity block when square,
-    zeros otherwise).
+    zeros otherwise). A batch (xs1 (B, m, d), xs2 (B, n, d), scal (B, 3))
+    goes through broadcasting.
+
+    On a square build's diagonal d2 is set to exactly 0 (a GEMM need not
+    round s1 + s2 - 2 cross to 0 there, and matern12's sqrt turns that
+    rounding into a gradient error; the kernel's norms are summed in the
+    cross term's order, so its own d2 is 0 there already).
     """
-    sf2, diag_add, alpha = scal[0], scal[1], scal[2]
-    cross = xs1 @ xs2.T
+    sf2, diag_add, alpha = (scal[..., i, None, None] for i in range(3))
+    cross = xs1 @ xs2.mT
+    m, n = cross.shape[-2:]
+    rows = torch.arange(m, device=cross.device)[:, None]
+    cols = torch.arange(n, device=cross.device)[None, :]
     if kind == "linear":
         k = sf2 * cross + alpha
     else:
-        s1 = torch.sum(xs1 * xs1, dim=-1)[:, None]
-        s2 = torch.sum(xs2 * xs2, dim=-1)[None, :]
+        s1 = torch.sum(xs1 * xs1, dim=-1)[..., :, None]
+        s2 = torch.sum(xs2 * xs2, dim=-1)[..., None, :]
         if kind == "rbf":
             k = sf2 * torch.exp(cross - 0.5 * s1 - 0.5 * s2)
         else:
             d2 = torch.clamp(s1 + s2 - 2.0 * cross, min=0.0)
+            if square:
+                d2 = torch.where((rows == cols) & (rows < n1_true), 0.0, d2)
             k = sf2 * kernel_fn_plain(d2, kind, alpha)
-    m, n = k.shape
-    rows = torch.arange(m, device=k.device)[:, None]
-    cols = torch.arange(n, device=k.device)[None, :]
     pad = (rows >= n1_true) | (cols >= n2_true)
     if square:
         diag = rows == cols
@@ -94,13 +107,16 @@ def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
 def route(ldo, ptr):
     """The store route the kernel takes for an output with leading
     dimension ldo at address ptr (cugp_cov's rule): "16-byte" where
-    ldo % 4 == 0 and ptr is 16-byte aligned, else "4-byte". Both routes
+    ldo % 4 == 0 and ptr is 16-byte aligned (and, in a batch, the
+    elements' stride m n is a multiple of 4), else "4-byte". Both routes
     write the same values."""
     return "16-byte" if ldo % 4 == 0 and ptr % 16 == 0 else "4-byte"
 
 
 def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true):
-    """Build the (m, n) tile: the kernel on CUDA, the plain version on CPU."""
+    """Build the (m, n) tile, or a (B, m, n) batch of them from xs1
+    (B, m, d), xs2 (B, n, d) and scal (B, 3): the kernel on CUDA, the
+    plain version on CPU."""
     global LAUNCHES
     if kind not in KIND_CODES:
         raise ValueError(f"cov_tile takes base families {tuple(KIND_CODES)}"
@@ -111,26 +127,36 @@ def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true):
         if t.dtype != torch.float32 or t.device != xs1.device:
             raise ValueError(f"cov_tile: {name} must be float32 on "
                              f"{xs1.device}, got {t.dtype} on {t.device}")
-    m, d = xs1.shape
-    n, d2 = xs2.shape
-    if d2 != d or scal.numel() != 3:
+    batched = xs1.ndim == 3
+    *bs, m, d = xs1.shape
+    if (xs2.ndim != xs1.ndim or xs1.ndim not in (2, 3)
+            or xs2.shape[:-2] != xs1.shape[:-2] or xs2.shape[-1] != d
+            or tuple(scal.shape) != (*bs, 3)):
         raise ValueError(f"cov_tile: shapes {tuple(xs1.shape)}, "
                          f"{tuple(xs2.shape)}, scal {tuple(scal.shape)}")
-    xs1, xs2, scal = xs1.contiguous(), xs2.contiguous(), scal.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=xs1.device)
+    batch = bs[0] if batched else 1
+    n = xs2.shape[-2]
+    same = xs2 is xs1
+    xs1, scal = xs1.contiguous(), scal.contiguous()
+    xs2 = xs1 if same else xs2.contiguous()
+    out = torch.empty((*bs, m, n), dtype=torch.float32, device=xs1.device)
+    if batch == 0:
+        return out
     lib = _build.lib()
     floats = lib.cugp_cov_scratch(m, n, d)
     if floats < 0:
         raise ValueError(f"cov_tile: m={m}, n={n}, d={d} needs a scratch "
                          "past 2^31 floats")
-    # padded rows and half-norms: 0.3 MB at 8000 x 8000, d = 4 (half of
-    # it when xs2 is xs1: one pre-pass)
-    scratch = torch.empty(floats, dtype=torch.float32, device=xs1.device)
+    # padded rows and half-norms an element: 0.3 MB at 8000 x 8000, d = 4
+    # (half of it when xs2 is xs1: one pre-pass)
+    scratch = torch.empty(batch * floats, dtype=torch.float32,
+                          device=xs1.device)
     with torch.cuda.device(xs1.device):
         err = lib.cugp_cov(xs1.data_ptr(), xs2.data_ptr(), scal.data_ptr(),
                            out.data_ptr(), scratch.data_ptr(), m, n, d,
-                           out.stride(0), KIND_CODES[kind], int(square),
+                           out.stride(-2), KIND_CODES[kind], int(square),
                            min(int(n1_true), m), min(int(n2_true), n),
+                           batch, m * d, n * d, m * n,
                            _build.stream_of(xs1))
     _build.check(err, "cov")
     LAUNCHES += 1

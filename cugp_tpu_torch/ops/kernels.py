@@ -15,6 +15,14 @@ plus ``log_alpha`` (rq), ``log_period`` (d,) (periodic) or
 ``log_bias_var`` (linear); composites use the nested terms/factors dict:
   {"log_noise_var": (),
    "terms": [{"log_signal_var": (), "factors": [<factor dict>, ...]}, ...]}
+
+Batched hyperparameters (chains or Monte Carlo draws of the samplers,
+the counterpart of ``jax.vmap`` over params): every leaf carries a
+leading B (``log_lengthscale`` (B, d), ``log_noise_var`` (B,), ...) while
+X stays shared; ``train_covariance`` / ``cross_covariance`` then return
+(B, m, n) from one batched launch of the tile per base family (periodic
+through its rbf view, composites combined elementwise with broadcasting).
+Unbatched params take the same code with no batch dimension.
 """
 
 from __future__ import annotations
@@ -68,6 +76,17 @@ def validate_kind(kind):
     parse_kind(kind)
 
 
+def _bcast(s, like):
+    """A per-element scalar s (() or (B,)) shaped to broadcast against
+    like (..., m, n) or (..., n)."""
+    return s if s.ndim == 0 else s.reshape(s.shape + (1,) * (like.ndim - 1))
+
+
+def _scale(X, v):
+    """X (n, d) divided by v (d,), or by each row of v (B, d): (B, n, d)."""
+    return X / v if v.ndim == 1 else X / v[..., None, :]
+
+
 def signal_scale(params):
     """exp(log_signal_var) for base families, the sum of term amplitudes
     for composites."""
@@ -78,8 +97,7 @@ def signal_scale(params):
 
 def _unit_amplitude(fparams, like):
     p = dict(fparams)
-    p["log_signal_var"] = torch.zeros((), dtype=torch.float32,
-                                      device=like.device)
+    p["log_signal_var"] = torch.zeros_like(like)
     return p
 
 
@@ -103,7 +121,7 @@ def _composite_combine(params, kind, factor_fn):
         for fparams, base in zip(tparams["factors"], bases):
             Kf = factor_fn(_unit_amplitude(fparams, like), base)
             Kt = Kf if Kt is None else Kt * Kf
-        Kt = torch.exp(tparams["log_signal_var"]) * Kt
+        Kt = _bcast(torch.exp(tparams["log_signal_var"]), Kt) * Kt
         K = Kt if K is None else K + Kt
     return K
 
@@ -137,7 +155,7 @@ def factor_view(fparams, X, base):
         fparams, X = periodic_rbf_view(fparams, X)
         base = "rbf"
     ell = torch.exp(fparams["log_lengthscale"])
-    return (X / ell).to(torch.float32), base, extra_scalar(fparams, base)
+    return _scale(X, ell).to(torch.float32), base, extra_scalar(fparams, base)
 
 
 def tile_eval(rows_s, cols_s, base, extra):
@@ -164,7 +182,7 @@ def kernel_fn(d2, kind, alpha=None):
 def periodic_features(X, log_period):
     """phi(x) = [cos(2 pi x/p), sin(2 pi x/p)] per dim: rbf on phi(X) with
     each lengthscale duplicated is the exp-sine-squared kernel."""
-    ang = _TWO_PI * X / torch.exp(log_period)
+    ang = _scale(_TWO_PI * X, torch.exp(log_period))
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
@@ -172,7 +190,7 @@ def periodic_rbf_view(params, *Xs):
     """(params', phi(X)...) such that rbf on them == periodic on inputs."""
     ll = params["log_lengthscale"]
     p2 = {k: v for k, v in params.items() if k != "log_period"}
-    p2["log_lengthscale"] = torch.cat([ll, ll])
+    p2["log_lengthscale"] = torch.cat([ll, ll], dim=-1)
     feats = tuple(periodic_features(X, params["log_period"]) for X in Xs)
     return (p2,) + feats
 
@@ -180,14 +198,14 @@ def periodic_rbf_view(params, *Xs):
 def extra_scalar(params, kind):
     """The family scalar of the covariance tile: rq mixture alpha, linear
     bias variance, else 1.0 (unused)."""
-    like = params["log_lengthscale"]
+    like = params["log_lengthscale"][..., 0]
     if kind == "rq" and "log_alpha" in params:
         return torch.exp(params["log_alpha"])
     if kind == "linear":
         if "log_bias_var" in params:
             return torch.exp(params["log_bias_var"])
-        return torch.zeros((), dtype=torch.float32, device=like.device)
-    return torch.ones((), dtype=torch.float32, device=like.device)
+        return torch.zeros_like(like)
+    return torch.ones_like(like)
 
 
 def kernel_diag(params, X, kind="rbf"):
@@ -197,11 +215,13 @@ def kernel_diag(params, X, kind="rbf"):
             params, kind, lambda fp, base: kernel_diag(fp, X, base))
     sf2 = torch.exp(params["log_signal_var"])
     if kind == "linear":
-        Xs = X / torch.exp(params["log_lengthscale"])
-        bias = (torch.exp(params["log_bias_var"])
+        Xs = _scale(X, torch.exp(params["log_lengthscale"]))
+        q = torch.sum(Xs * Xs, dim=-1)
+        bias = (_bcast(torch.exp(params["log_bias_var"]), q)
                 if "log_bias_var" in params else 0.0)
-        return sf2 * torch.sum(Xs * Xs, dim=-1) + bias
-    return sf2 * torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
+        return _bcast(sf2, q) * q + bias
+    ones = torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
+    return _bcast(sf2, ones) * ones
 
 
 # ---- plain versions (the counterparts of the JAX *_xla functions) ----
@@ -269,17 +289,20 @@ def train_covariance_plain(params, X, kind="rbf", jitter=1e-6, n_true=None):
 
 
 def _tile(params, X1, X2, kind, square, diag_add, n1_true, n2_true):
-    """One base family through cov_cuda.CovTile."""
+    """One base family through cov_cuda.CovTile (a batch of builds when
+    the params carry a leading B)."""
     if kind == "periodic":
         params, X1, X2 = periodic_rbf_view(params, X1, X2)
         kind = "rbf"
     ell = torch.exp(params["log_lengthscale"])
-    xs1 = X1 / ell
-    xs2 = xs1 if X2 is X1 else X2 / ell
-    scal = torch.stack([torch.exp(params["log_signal_var"]),
-                        torch.as_tensor(diag_add, dtype=torch.float32,
-                                        device=X1.device),
-                        extra_scalar(params, kind)]).to(torch.float32)
+    xs1 = _scale(X1, ell)
+    xs2 = xs1 if X2 is X1 else _scale(X2, ell)
+    sf2 = torch.exp(params["log_signal_var"])
+    scal = torch.stack([sf2,
+                        torch.broadcast_to(torch.as_tensor(
+                            diag_add, dtype=torch.float32,
+                            device=sf2.device), sf2.shape),
+                        extra_scalar(params, kind)], dim=-1).to(torch.float32)
     return cov_cuda.CovTile.apply(xs1.to(torch.float32),
                                   xs2.to(torch.float32), scal, kind, square,
                                   n1_true, n2_true)
@@ -309,7 +332,8 @@ def train_covariance(params, X, kind="rbf", jitter=1e-6, method="auto",
         params)
     if is_composite(kind):
         K = cross_covariance(params, X, X, kind, method=method)
-        K = K + diag_add * torch.eye(n, dtype=K.dtype, device=K.device)
+        K = K + _bcast(diag_add, K) * torch.eye(n, dtype=K.dtype,
+                                                device=K.device)
         return _identity_pad(K, n_true)
     nt = n if n_true is None else min(n, n_true)
     return _tile(params, X, X, kind, True, diag_add, nt, nt)

@@ -7,7 +7,9 @@ coupling term is one large GEMM (``addmm_``, true fp32). The base case
 ``torch.linalg.solve_triangular`` for CPU tensors (``trsm_cuda.trsm_``).
 The recursion works in place on the right-hand side; the public solves
 copy it once and carry an autograd rule whose backward is two more of
-the same solves.
+the same solves. Every solve also takes a batch: L (B, n, n) with B
+(B, n, k) (or (B, n) vectors), its GEMMs batched (``baddbmm_``) and the
+batched kernel launch at the base.
 
 Solve variants (L lower triangular):
   solve_lx(L, B)  : L X = B       (forward substitution)
@@ -36,35 +38,45 @@ def check_method(method):
     raise ValueError(f"unknown method: {method!r}")
 
 
+def sub_mm_(c, a, b):
+    """c -= a @ b in place, true fp32: addmm_ for matrices, baddbmm_ for
+    a batch of them."""
+    if c.ndim == 2:
+        c.addmm_(a, b, alpha=-1.0)
+    else:
+        c.baddbmm_(a, b, alpha=-1.0)
+
+
 def solve_lx_(l, b):
-    """L X = B in place on b (n, k), any strides."""
+    """L X = B in place on b (n, k) or (B, n, k), any strides."""
     n = l.shape[-1]
     if n <= _BASE:
         trsm_cuda.trsm_(l, b, left=True, transpose=False)
         return b
     m = _split_point(n)
-    solve_lx_(l[:m, :m], b[:m])
-    b[m:].addmm_(l[m:, :m], b[:m], alpha=-1.0)
-    solve_lx_(l[m:, m:], b[m:])
+    solve_lx_(l[..., :m, :m], b[..., :m, :])
+    sub_mm_(b[..., m:, :], l[..., m:, :m], b[..., :m, :])
+    solve_lx_(l[..., m:, m:], b[..., m:, :])
     return b
 
 
 def solve_ltx_(l, b):
-    """L^T X = B in place on b (n, k), any strides."""
+    """L^T X = B in place on b (n, k) or (B, n, k), any strides."""
     n = l.shape[-1]
     if n <= _BASE:
         trsm_cuda.trsm_(l, b, left=True, transpose=True)
         return b
     m = _split_point(n)
-    solve_ltx_(l[m:, m:], b[m:])
-    b[:m].addmm_(l[m:, :m].mT, b[m:], alpha=-1.0)
-    solve_ltx_(l[:m, :m], b[:m])
+    solve_ltx_(l[..., m:, m:], b[..., m:, :])
+    sub_mm_(b[..., :m, :], l[..., m:, :m].mT, b[..., m:, :])
+    solve_ltx_(l[..., :m, :m], b[..., :m, :])
     return b
 
 
 def solve_xlt_(l, b):
-    """X L^T = B in place on b (k, n): L X^T = B^T on b's transposed view,
-    split at the same points as trsm.solve_xlt's column recursion."""
+    """X L^T = B in place on b (k, n) or (B, k, n): L X^T = B^T on b's
+    transposed view, split at the same points as trsm.solve_xlt's column
+    recursion."""
     solve_lx_(l, b.mT)
     return b
 
@@ -94,13 +106,14 @@ class _Solve(torch.autograd.Function):
 
 def _solve(l, b, transpose, method):
     check_method(method)
-    vec = b.ndim == 1
-    x = _Solve.apply(l, b[:, None] if vec else b, transpose)
-    return x[:, 0] if vec else x
+    vec = b.ndim == l.ndim - 1
+    x = _Solve.apply(l, b[..., None] if vec else b, transpose)
+    return x[..., 0] if vec else x
 
 
 def solve_lx(l, b, method="auto"):
-    """Solve L X = B for X (L lower triangular, B is (n, k) or (n,))."""
+    """Solve L X = B for X (L lower triangular, B is (n, k) or (n,); or
+    a batch: L (B, n, n), B (B, n, k) or (B, n))."""
     return _solve(l, b, False, method)
 
 
@@ -110,7 +123,8 @@ def solve_ltx(l, b, method="auto"):
 
 
 def solve_xlt(l, b, method="auto"):
-    """Solve X L^T = B for X (right-side solve; B is (k, n))."""
+    """Solve X L^T = B for X (right-side solve; B is (k, n) or
+    (B, k, n))."""
     check_method(method)
     return _Solve.apply(l, b.mT, False).mT
 

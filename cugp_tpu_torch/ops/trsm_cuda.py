@@ -16,6 +16,10 @@ column streams the tiles of L ahead of use with cp.async; for wider k
 (predict, the Cholesky panel solves, Murray's backward) it is bound by
 fp32 FMA issue, so a grid of column slabs runs register-tiled products.
 
+A batch (L (B, n, n), B (B, n, k)) is one launch of each pass with the
+element as the grid's second index, one scratch of inverted tiles an
+element; each element equals its own 2-D solve bitwise.
+
 ``trsm_`` launches the kernels for CUDA tensors (or raises) and writes
 ``trsm_plain`` (``torch.linalg.solve_triangular``) for CPU tensors.
 ``LAUNCHES`` counts calls of ``trsm_`` that launched: one a solve, though
@@ -40,28 +44,32 @@ def _scratch_floats(n):
 
 
 def _vec_view(b, left):
-    """A 1-D right-hand side as an (n, 1) column (left) or (1, n) row."""
-    return b[:, None] if left else b[None, :]
+    """A vector right-hand side (n,) or (B, n) as an (n, 1) column (left)
+    or a (1, n) row, with the batch dimension in front."""
+    return b[..., :, None] if left else b[..., None, :]
 
 
 def trsm_plain(l, b, left=True, transpose=False):
-    """Solve op(L) X = B (left) or X op(L) = B (right); L lower."""
-    vec = b.ndim == 1
+    """Solve op(L) X = B (left) or X op(L) = B (right); L lower, (n, n) or
+    a (B, n, n) batch with B (B, n, k) (or (B, n) vectors)."""
+    vec = b.ndim == l.ndim - 1
     if vec:
         b = _vec_view(b, left)
     lt = torch.tril(l)
     a = lt.mT if transpose else lt
     x = torch.linalg.solve_triangular(a, b, upper=transpose, left=left)
-    return x.reshape(-1) if vec else x
+    return x.squeeze(-1 if left else -2) if vec else x
 
 
 def trsm_(l, b, left=True, transpose=False):
-    """trsm_plain's solve written into ``b`` in place (any strides).
+    """trsm_plain's solve written into ``b`` in place (any strides); L
+    (n, n) with B (n, k) or (n,), or a batch: L (B, n, n) with B (B, n, k)
+    or (B, n).
 
     For a CUDA tensor this launches the kernel or raises.
     """
     global LAUNCHES
-    if b.ndim == 1:
+    if b.ndim == l.ndim - 1:
         trsm_(l, _vec_view(b, left), left, transpose)
         return b
     if not left:
@@ -69,7 +77,8 @@ def trsm_(l, b, left=True, transpose=False):
         trsm_(l, b.mT, True, not transpose)
         return b
     n = l.shape[-1]
-    if l.shape != (n, n) or b.ndim != 2 or b.shape[0] != n:
+    if (l.ndim not in (2, 3) or l.shape[-2] != n or b.ndim != l.ndim
+            or b.shape[:-2] != l.shape[:-2] or b.shape[-2] != n):
         raise ValueError(f"trsm_: L {tuple(l.shape)}, B {tuple(b.shape)}")
     if not b.is_cuda:
         b.copy_(trsm_plain(l, b, True, transpose))
@@ -81,13 +90,17 @@ def trsm_(l, b, left=True, transpose=False):
                          f"and unit column stride on B's device, got L "
                          f"{l.dtype} {tuple(l.shape)} {l.stride()} on "
                          f"{l.device}, B {b.dtype} on {b.device}")
+    batch = l.shape[0] if l.ndim == 3 else 1
+    if batch == 0:
+        return b
     lib = _build.lib()
-    # the inverted diagonal tiles (256 KB at n = 1024)
-    scratch = torch.empty(_scratch_floats(n), dtype=torch.float32,
+    # the inverted diagonal tiles (256 KB an element at n = 1024)
+    scratch = torch.empty(batch * _scratch_floats(n), dtype=torch.float32,
                           device=b.device)
-    args = (l.data_ptr(), l.stride(0), b.data_ptr(), b.stride(0),
-            b.stride(1), n, b.shape[1], int(transpose), scratch.data_ptr(),
-            _build.stream_of(b))
+    args = (l.data_ptr(), l.stride(-2), b.data_ptr(), b.stride(-2),
+            b.stride(-1), n, b.shape[-1], int(transpose), scratch.data_ptr(),
+            batch, l.stride(0) if l.ndim == 3 else 0,
+            b.stride(0) if b.ndim == 3 else 0, _build.stream_of(b))
     if dev == torch.cuda.current_device():
         err = lib.cugp_trsm(*args)
     else:

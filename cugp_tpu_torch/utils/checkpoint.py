@@ -22,29 +22,7 @@ import tempfile
 import numpy as np
 import torch
 
-
-def _flatten(tree):
-    """Leaves in jax's order: sorted dict keys, lists in order."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _flatten(v)]
-    return [tree]
-
-
-def _unflatten(example, leaves):
-    """example's nesting with its leaves replaced, in _flatten's order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    return build(example)
+from cugp_tpu_torch.utils.params import sorted_leaves, unflatten_sorted
 
 
 def _treedef(tree):
@@ -74,7 +52,7 @@ def save(path, tree, step=None, extra_json=None):
     directory."""
     if _rank() != 0:
         return
-    leaves = _flatten(tree)
+    leaves = sorted_leaves(tree)
     parent = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=parent, prefix=".ckpt_tmp_")
@@ -131,10 +109,10 @@ def restore(path, example_tree):
             return None, None
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    n = len(_flatten(example_tree))
+    n = len(sorted_leaves(example_tree))
     if meta["num_leaves"] != n:
         raise ValueError(f"checkpoint has {meta['num_leaves']} leaves, "
                          f"example tree has {n}")
     with np.load(os.path.join(path, "arrays.npz")) as blob:
         leaves = [blob[f"leaf_{i}"] for i in range(n)]
-    return _unflatten(example_tree, leaves), meta
+    return unflatten_sorted(example_tree, leaves), meta

@@ -159,6 +159,10 @@ def test_port_never_imports_jax():
             "import cugp_tpu_torch.oracle.exact_gp_np, "
             "cugp_tpu_torch.utils.checkpoint\n"
             "import cugp_tpu_torch.inference._lbfgs\n"
+            "import cugp_tpu_torch.inference.hmc, "
+            "cugp_tpu_torch.inference.nuts\n"
+            "import cugp_tpu_torch.inference.sampling, "
+            "cugp_tpu_torch.inference.vi\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'cugp_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
