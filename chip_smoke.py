@@ -944,7 +944,7 @@ def phase_batched(torch, dev, results, sizes=BATCH_SIZES, ns=BATCH_N,
                 fail(f"potrf batched B={B} n={n}: recon relerr {rec:.3e} "
                      f"(bar 1e-5), L err {err:.3e} (bar 1e-4 rel)")
             say("batched", kernel="potrf", B=B, n=n,
-                route=chol_cuda.route(n, B, dev),
+                route=chol_cuda.route(B, dev),
                 routes_and_loop_bitwise=True, recon_relerr=f"{rec:.3e}",
                 L_err=f"{err:.3e}")
             factors[B, n] = auto
@@ -963,7 +963,7 @@ def phase_batched(torch, dev, results, sizes=BATCH_SIZES, ns=BATCH_N,
     B, n = timed
     A = _spd_batch(torch, B, n, dev, seed=11)
     potrf_row = _time_batched(
-        torch, f"potrf B={B} n={n} route={chol_cuda.route(n, B, dev)}",
+        torch, f"potrf B={B} n={n} route={chol_cuda.route(B, dev)}",
         lambda: chol_cuda.potrf(A), lambda: [chol_cuda.potrf(a) for a in A],
         lambda: chol_cuda.potrf_plain(A), lambda: torch.linalg.cholesky(A),
         bound(4 * 2 * B * n * n, B * n ** 3 / 3))
@@ -974,7 +974,7 @@ def phase_batched(torch, dev, results, sizes=BATCH_SIZES, ns=BATCH_N,
     for Bs in (2, 4, 8, 16, 32, 64):
         As = A[:Bs].contiguous()
         say("batched", kernel="potrf", case="routes by B", B=Bs, n=n,
-            auto=chol_cuda.route(n, Bs, dev),
+            auto=chol_cuda.route(Bs, dev),
             cooperative_ms=f"{cuda_ms(lambda: chol_cuda.potrf(As, 'cooperative'), iters=5):.4f}",
             batch_ms=f"{cuda_ms(lambda: chol_cuda.potrf(As, 'batch'), iters=5):.4f}")
     del A
@@ -1606,7 +1606,8 @@ def phase_samplers(torch, dev, profile=False, n=512, chains=256, warmup=64,
     qs = q0[None, :] + 0.3 * torch.randn(8, q0.numel(), device=dev,
                                          generator=gen(2))
     (logp, grad), t_eval = synced(lambda: lpg(qs))
-    worst = {"oracle_logp": 0.0, "oracle_grad": 0.0, "single_logp": 0.0,
+    worst = {"oracle_logp": 0.0, "oracle_grad": 0.0,
+             "oracle_grad_single": 0.0, "single_logp": 0.0,
              "single_grad": 0.0}
     alone = True
     for i in range(8):
@@ -1623,6 +1624,9 @@ def phase_samplers(torch, dev, profile=False, n=512, chains=256, warmup=64,
                                    abs(float(logp[i]) - lp64) / abs(lp64))
         worst["oracle_grad"] = max(worst["oracle_grad"], float(
             np.abs(gi - g64).max() / np.abs(g64).max()))
+        worst["oracle_grad_single"] = max(worst["oracle_grad_single"], float(
+            np.abs(g1[0].double().cpu().numpy() - g64).max()
+            / np.abs(g64).max()))
         worst["single_logp"] = max(worst["single_logp"], abs(
             float(lp1[0]) - float(logp[i])) / abs(float(logp[i])))
         worst["single_grad"] = max(worst["single_grad"], float(
@@ -1634,12 +1638,36 @@ def phase_samplers(torch, dev, profile=False, n=512, chains=256, warmup=64,
         eval_s=f"{t_eval:.4f}",
         **{f"rel_err_{k}": f"{v:.3e}" for k, v in worst.items()},
         each_alone_in_a_batch_of_8_bitwise=alone)
-    gate(worst["oracle_logp"] <= 1e-3 and worst["oracle_grad"] <= 1e-3,
-         "log density or gradient off the float64 oracle by more than 1e-3")
+    gate(worst["oracle_logp"] <= 1e-3 and worst["oracle_grad"] <= 1e-3
+         and worst["oracle_grad_single"] <= 1e-3,
+         "log density or gradient (batched or one at a time) off the "
+         "float64 oracle by more than 1e-3")
+    # What a batch of 1 computes otherwise than a batch of 8: element 0
+    # of each of the path's torch primitives at both sizes, bitwise or
+    # not (the hand kernels are held bitwise to the loop in phase 2).
+    Ls = cholesky.cholesky(kernels.train_covariance(unravel(qs), gp.X))
+    Lbar = torch.randn(Ls.shape, device=dev, generator=gen(6))
+    probes = {
+        "gemm_LT_Lbar_n3": lambda b: Ls[:b].mT @ Lbar[:b],
+        "gemm_nxn_by_nx1": lambda b: Lbar[:b] @ Ls[:b, :, :1],
+        "sum_over_nxn": lambda b: (Ls[:b] * Lbar[:b]).sum((-2, -1)),
+        "sum_over_n": lambda b: Lbar[:b, :, 0].sum(-1),
+    }
+    for name, f in probes.items():
+        one, eight = f(1)[0], f(8)[0]
+        say("samplers", case="batch of 1 against element 0 of 8",
+            primitive=name, bitwise=bool(torch.equal(one, eight)),
+            max_rel=f"{float((one - eight).abs().max() / eight.abs().max()):.3e}")
+    del Ls, Lbar
     # one at a time (a batch of 1): the log density at 1e-5; the gradient
-    # at 1e-4 of its largest component, since cuBLAS takes other GEMM
-    # kernels for Murray's rule at a batch of 1 and of 8 and the
-    # gradient's terms cancel (1.556e-05 on an H100 80GB HBM3 at 700 W)
+    # at 1e-4 of its largest component. The primitives above that differ
+    # at a batch of 1 move the gradient, whose terms cancel. On an H100
+    # 80GB HBM3 at 700 W both GEMMs and the sum over n differed; the
+    # gradient one at a time lay 1.647e-05 of its largest component off
+    # float64, the batched one 6.100e-06, the two 1.556e-05 apart: a
+    # 1e-5 bar between them is finer than fp32 computes the gradient. A
+    # chain alone in a batch of 8 is bitwise its value in the mixed batch
+    # (the gate below)
     gate(worst["single_logp"] <= 1e-5 and worst["single_grad"] <= 1e-4,
          "batched evaluation off the one-at-a-time one (log density 1e-5, "
          "gradient 1e-4)")

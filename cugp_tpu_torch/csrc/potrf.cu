@@ -339,13 +339,12 @@ enum Route { AUTO = 0, COOPERATIVE = 1, BATCHED = 2 };
 
 }  // namespace
 
-// The route cugp_potrf takes for batch blocks of (n, n) when asked for
-// AUTO: 1 the cooperative route, 2 the batch route.
-extern "C" int cugp_potrf_route(int n, int batch, int* route) {
+// The route cugp_potrf takes for batch blocks when asked for AUTO: 1 the
+// cooperative route, 2 the batch route.
+extern "C" int cugp_potrf_route(int batch, int* route) {
   int sms = 0;
   cudaError_t err = cugp::sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  (void)n;
   *route = batch > 1 && batch * BATCH_MIN_SM_SHARE >= sms ? BATCHED
                                                           : COOPERATIVE;
   return 0;
@@ -375,7 +374,7 @@ extern "C" int cugp_potrf(float* a, long long lda, long long batch_stride,
     return cudaErrorInvalidValue;
   int err = 0;
   if (route == AUTO) {
-    err = cugp_potrf_route(n, batch, &route);
+    err = cugp_potrf_route(batch, &route);
     if (err != 0) return err;
   }
   void* args[] = {&a, &lda, &batch_stride, &n, &batch};

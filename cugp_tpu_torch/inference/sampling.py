@@ -27,19 +27,15 @@ from cugp_tpu_torch.utils.params import ravel_pytree
 
 
 def make_flat_logprob(init_params, X, y, kind="rbf", jitter=1e-6,
-                      method="auto", log_prior=hmc_lib.default_log_prior,
-                      lml_fn=None):
+                      method="auto", log_prior=hmc_lib.default_log_prior):
     """Returns (logprob_and_grad over flat q, unravel, q0_flat).
 
     logprob_and_grad maps q (B, D) to (logp (B,), grad (B, D)) through
     one batched LML (its gradient by autograd of the sum over chains).
-    lml_fn: optional override taking the (batched) params dict.
     """
     q0, unravel = ravel_pytree(init_params)
 
     def flat_lml(q):
-        if lml_fn is not None:
-            return lml_fn(unravel(q))
         return exact_gp.log_marginal_likelihood(
             unravel(q), X, y, kind=kind, jitter=jitter, method=method)
 

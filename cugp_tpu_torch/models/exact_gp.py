@@ -34,25 +34,19 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
     reads one scalar back to the host: one sync per factorization.
 
     A batch K (B, n, n) with sf2 (B,) decides per element, as vmap of the
-    JAX ladder does: an element whose factor is not finite gets the
-    level's jitter, the others keep theirs (0 for an element that
-    factored at once), and the batch is factored again. Elements that
-    keep their jitter come out with the same bits as before, since every
-    element of a batched factorization is computed on its own; only the
-    last factorization is in the autograd graph, so no element's gradient
-    passes through a failed factor. One host read per ladder level for
-    the whole batch.
+    JAX ladder does (K (n, n) with a 0-d sf2 is a batch of one): an
+    element whose factor is not finite gets the level's jitter, the
+    others keep theirs (0 for an element that factored at once), and the
+    batch is factored again. Elements that keep their jitter come out
+    with the same bits as before, since every element of a batched
+    factorization is computed on its own; only the last factorization is
+    in the autograd graph, so no element's gradient passes through a
+    failed factor (the JAX version's does: its gradient is NaN wherever
+    the ladder retries). One host read per ladder level for the batch.
     """
     L = chol_ops.cholesky(K, method=method)
     extra = None
     for i in range(1, max_attempts):
-        if K.ndim == 2:
-            if bool(torch.isfinite(torch.diagonal(L).sum())):
-                break
-            extra = jitter0 * (100.0 ** i) * sf2
-            eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-            L = chol_ops.cholesky(K + extra * eye, method=method)
-            continue
         ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1).sum(-1))
         if bool(ok.all()):  # the level's host read
             break
@@ -60,7 +54,7 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
             extra = torch.zeros_like(sf2)
         extra = torch.where(ok, extra, jitter0 * (100.0 ** i) * sf2)
         eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-        L = chol_ops.cholesky(K + extra[:, None, None] * eye, method=method)
+        L = chol_ops.cholesky(K + extra[..., None, None] * eye, method=method)
     return L
 
 

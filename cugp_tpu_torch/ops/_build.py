@@ -45,8 +45,8 @@ _SIGNATURES = {
     "cugp_potrf": [_p, _ll, _ll, _i, _i, _i, _p],
     # n, out: the grid the cooperative route launches for an (n, n) block
     "cugp_potrf_grid": [_i, ctypes.POINTER(_i)],
-    # n, batch, out: the route cugp_potrf takes when asked for auto
-    "cugp_potrf_route": [_i, _i, ctypes.POINTER(_i)],
+    # batch, out: the route cugp_potrf takes when asked for auto
+    "cugp_potrf_route": [_i, ctypes.POINTER(_i)],
     # l, ldl, b, row_stride, col_stride, n, k, transpose, scratch, batch,
     # l_batch_stride, b_batch_stride, stream
     "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p, _i, _ll, _ll, _p],

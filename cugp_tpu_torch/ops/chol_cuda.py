@@ -78,14 +78,14 @@ def potrf(a, route="auto"):
     return potrf_(a.clone(memory_format=torch.contiguous_format), route)
 
 
-def route(n, batch, device=None):
-    """The route potrf_ takes for a batch of (n, n) blocks on ``device``
-    when asked for "auto": "batch" from 9 blocks on an H100 (the SM count
-    over 16), else "cooperative"."""
+def route(batch, device=None):
+    """The route potrf_ takes for a batch of blocks on ``device`` when
+    asked for "auto": "batch" from 9 blocks on an H100 (the SM count over
+    16), else "cooperative"."""
     lib = _build.lib()
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _build.check(lib.cugp_potrf_route(n, batch, ctypes.byref(out)),
+        _build.check(lib.cugp_potrf_route(batch, ctypes.byref(out)),
                      "potrf")
     return {v: k for k, v in ROUTES.items()}[out.value]
 

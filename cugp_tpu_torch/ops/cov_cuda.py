@@ -107,9 +107,10 @@ def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
 def route(ldo, ptr):
     """The store route the kernel takes for an output with leading
     dimension ldo at address ptr (cugp_cov's rule): "16-byte" where
-    ldo % 4 == 0 and ptr is 16-byte aligned (and, in a batch, the
-    elements' stride m n is a multiple of 4), else "4-byte". Both routes
-    write the same values."""
+    ldo % 4 == 0 and ptr is 16-byte aligned, else "4-byte". cugp_cov
+    also asks a batch's element stride to be a multiple of 4; cov_tile's
+    output is contiguous, so that stride, m ldo, is one whenever ldo is.
+    Both routes write the same values."""
     return "16-byte" if ldo % 4 == 0 and ptr % 16 == 0 else "4-byte"
 
 

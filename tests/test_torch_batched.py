@@ -221,3 +221,34 @@ def test_safe_cholesky_per_chain_matches_vmap_jax():
     for b in (0, 1, 3):
         assert torch.equal(L[b], tchol.cholesky(t(A[b])))
     assert torch.equal(L[2], tgp.safe_cholesky(t(A[2]), t(sf2[2])))
+
+
+@pytest.mark.parametrize("q", [(0.0, -20.0, 0.0), (0.5, -14.0, 1.0)])
+def test_ladder_gradient_where_jax_gives_nan(q):
+    """sinusoid_1d(n=128), rbf, (log lengthscale, log noise variance, log
+    signal variance) = q: the first fp32 factor is not finite, so the
+    jitter ladder retries at +1e-4 sf2. JAX's LML returns the retried
+    value with a NaN gradient (its lax.cond differentiates through the
+    failed factor too; ROADMAP.md section 3). The port's value and
+    gradient are bitwise those of its LML built with jitter 1.01e-4 and
+    no ladder: finite, and only the retried factor in the graph."""
+    from cugp_tpu.data import synthetic as jsyn
+
+    X, y, _ = jsyn.sinusoid_1d(n=128, noise_std=0.1, seed=0)
+    X, y = X.astype(np.float32), y.astype(np.float32)
+    p = {"log_lengthscale": np.array([q[0]], np.float32),
+         "log_noise_var": np.float32(q[1]),
+         "log_signal_var": np.float32(q[2])}
+    val_j, g_j = jax.value_and_grad(
+        lambda p: jgp.log_marginal_likelihood(p, X, y))(p)
+    assert np.isfinite(float(val_j))
+    assert all(np.isnan(np.asarray(v)).all() for v in jax.tree.leaves(g_j))
+    pt = params_from_numpy(p, "cpu")
+    assert not torch.isfinite(tchol.cholesky(
+        tk.train_covariance(pt, t(X)))).all()
+    val, g = tgp.lml_value_and_grad(pt, t(X), t(y))
+    val2, g2 = tgp.lml_value_and_grad(pt, t(X), t(y), jitter=1.01e-4,
+                                      safe=False)
+    assert torch.equal(val, val2)
+    for a, b in zip(tree_leaves(g), tree_leaves(g2)):
+        assert torch.isfinite(a).all() and torch.equal(a, b)

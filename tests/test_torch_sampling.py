@@ -137,6 +137,90 @@ def test_hmc_transition_matches_jax():
     close(a_t, a_j)
 
 
+def _run_draws(windows, n_chains, dim):
+    """The draws of a JAX driver: for each (key, transitions) window, the
+    key split into a key a transition, each of those into a key a chain
+    (hmc.py:176 and :253), and each chain's key into the momentum and
+    accept keys (hmc.py:123-124). Returned in the order the port's driver
+    takes them: each transition's (C, D) momenta and (C,) accept
+    uniforms, window after window."""
+
+    def chain(k):
+        k_mom, k_acc = jax.random.split(k)
+        return jax.random.normal(k_mom, (dim,)), jax.random.uniform(k_acc)
+
+    normals, uniforms = [], []
+    for k, steps in windows:
+        for ks in jax.random.split(k, steps):
+            mom, uni = jax.vmap(chain)(jax.random.split(ks, n_chains))
+            normals.append(np.array(mom))
+            uniforms.append(np.array(uni))
+    return normals, uniforms
+
+
+@pytest.mark.parametrize("driver", ["adaptive_run", "retune_eps"])
+def test_drivers_match_jax(driver):
+    """The port's drivers with the fixed-step kernel (make_hmc_kernel,
+    step_jitter 0) against JAX's with its draws replayed, on the
+    correlated Gaussian: 8 chains, 8 leapfrog steps.
+
+    adaptive_run (warmup_adapt over its three windows, 16 transitions,
+    then sample_segment, 8 draws; JAX: one key for each window and one
+    for the draws, hmc.py:262): the same accept decisions at every draw,
+    the draws at rtol 1e-5 / atol 3e-5 (measured 1.4e-5: fp32 rounding
+    of the step size through 24 transitions), the step size and inverse
+    mass at rtol/atol 1e-5. retune_eps (12 transitions from eps0 0.3;
+    the dual averaging's second step, near 10 eps0, is rejected by every
+    chain): the state at rtol 1e-5 / atol 5e-5 (measured 2.7e-05), the
+    step size at rtol/atol 1e-5. From a larger eps0 the leapfrog runs
+    near its stability limit, which amplifies fp32 rounding: from 1.0
+    the two part by 1.9e-3.
+
+    The target is a Gaussian because its fp32 gradient is exact to an
+    ulp: the GP log density's fp32 gradient moves by ~1e-4 under a
+    one-ulp change of q, so two fp32 implementations of one GP posterior
+    part after a few transitions whatever the driver. The drivers do not
+    look at the target."""
+    n_chains, n_lf, dim = 8, 8, 3
+    lp_j, lp_t = gauss_pair(np.zeros(dim, np.float32), COV_INV)
+    q0 = np.random.default_rng(8).standard_normal(
+        (n_chains, dim)).astype(np.float32)
+    key = jax.random.key(9)
+    state_j = jhmc.HMCState(q0, *jax.vmap(lp_j)(q0))
+    kernel_j = jhmc.make_hmc_kernel(lp_j, n_lf)
+    kernel = hmc.make_hmc_kernel(lp_t, n_lf, step_jitter=0.0)
+    state = hmc.init_state(t(q0), lp_t)
+    if driver == "retune_eps":
+        inv_mass = np.array([0.5, 1.0, 2.0], np.float32)
+        s_j, eps_j = jhmc.retune_eps(state_j, key, kernel_j, 0.3, inv_mass,
+                                     num_steps=12)
+        normals, uniforms = _run_draws([(key, 12)], n_chains, dim)
+        s_t, eps = hmc.retune_eps(
+            state, hmc.Draws(normals=normals, uniforms=uniforms), kernel,
+            0.3, t(inv_mass), num_steps=12)
+        for a, b in zip(s_t, s_j):
+            close(a, b, rtol=1e-5, atol=5e-5)
+        close(eps, eps_j, rtol=1e-5, atol=1e-5)
+        return
+    num_warmup, num_samples = 16, 8
+    out_j = jhmc.adaptive_run(state_j, key, kernel_j, num_warmup,
+                              num_samples, 0.1, 0.8)
+    _, k1, k2, k3, k4 = jax.random.split(key, 5)
+    normals, uniforms = _run_draws(
+        [(k1, 4), (k2, 8), (k3, 4), (k4, num_samples)], n_chains, dim)
+    out = hmc.adaptive_run(state, hmc.Draws(normals=normals,
+                                            uniforms=uniforms),
+                           kernel, num_warmup, num_samples, 0.1, 0.8)
+    u = np.stack(uniforms[-num_samples:])
+    acc_j = u < np.asarray(out_j["aux"])
+    assert not acc_j.all()
+    np.testing.assert_array_equal(u < out["aux"].numpy(), acc_j)
+    close(out["samples_flat"], out_j["samples_flat"], rtol=1e-5, atol=3e-5)
+    close(out["aux"], out_j["aux"], rtol=1e-5, atol=1e-5)
+    close(out["eps"], out_j["eps"], rtol=1e-5, atol=1e-5)
+    close(out["inv_mass"], out_j["inv_mass"], rtol=1e-5, atol=1e-5)
+
+
 def _nuts_draws(keys, dim, max_depth):
     """nuts_kernel's draws per chain, in the port's order: the momentum
     (nuts.py:181-182, the first of three keys; the third seeds the
@@ -267,7 +351,7 @@ def test_step_jitter_breaks_the_resonance():
     """On a unit Gaussian with eps = 2 sin(pi / 32), 32 leapfrog steps are
     one whole period of the leapfrog map: at a fixed step size (the JAX
     kernel: hmc_kernel at eps) every transition returns each chain to
-    where it was; with make_hmc_kernel's jitter the chains move and their
+    where it was; with make_hmc_kernel's default jitter the chains move and their
     draws have about unit variance (0.6-1.6 over 8 chains x 100 draws).
     A jittered transition equals hmc_kernel at each chain's drawn step
     size, its uniform drawn first."""
@@ -277,10 +361,7 @@ def test_step_jitter_breaks_the_resonance():
     state = hmc.init_state(q0, lp)
     ones = torch.ones(1)
     g = torch.Generator().manual_seed(0)
-    def fixed(state, rng, eps, inv_mass):
-        state, aprobs = hmc.hmc_kernel(state, rng, eps, inv_mass, lp, 32)
-        return state, aprobs, aprobs
-
+    fixed = hmc.make_hmc_kernel(lp, n_leapfrog=32, step_jitter=0.0)
     _, qs, _, _ = hmc.sample_segment(state, g, fixed, eps, ones, 20)
     assert float((qs - q0).abs().max()) < 1e-3
     jit = hmc.make_hmc_kernel(lp, n_leapfrog=32)
