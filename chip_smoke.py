@@ -35,13 +35,21 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      and batch routes bitwise equal (the route each B takes printed, the
      two timed by B), a non-PD element NaN in its block only; config 3's
      shapes timed beside the loop, the batched library call and the
-     bound;
+     bound; and the batched matvec (B = 1, 7, 8; n = 32768 and 5000,
+     d = 1; r = 1, 17 narrow and 128 wide): each element bitwise its
+     2-D launch and within the plain version's bar, timed at B=8,
+     n=32768, r=17 beside the loop of 2-D launches and the plain
+     version;
   3. dense path: GP(kind="rbf", device="cuda").fit / predict /
      log_marginal_likelihood on the config-2 dataset (N=8000, d=4),
      checked against the float64 oracle (the port's copy), with each
      kernel's launch counter read around the run;
   4. north-star shape: covariance + Cholesky at N=32768, d=8, gated on
-     the reconstruction error of the first 4096 rows;
+     the reconstruction error of the first 4096 rows; then the opt-in
+     precision policies ("high", "mixed", "mixed_fast"): time, GFLOP/s,
+     that error and finiteness each, "high" and "mixed" gated at 2e-4,
+     "high" finite; the default factor bitwise unchanged after them and
+     TF32 off;
   5. matrix-free path at N=100,000, d=4: GP.fit_iterative (3 steps after
      a warm-up step), predict_iterative (128 test points, gated on the
      mean solve's residual recomputed without the kernel) and
@@ -62,12 +70,24 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      draws: samples/s, accept rate, R-hat and ESS), NUTS (depth 6, 64
      warm-up, 128 draws), HMC on a standard Gaussian, mean-field VI
      through GP.fit_vi, each gated; launch counters read around the
-     phase (the samplers path).
+     phase (the samplers path);
+  8. matrix-free hyperparameter HMC at n=32768 (bench_hmc.py's
+     iterative engine: sinusoid_1d, rbf, 8 chains, 16 frozen probes, 32
+     SLQ steps, a rank-128 preconditioner): the batched log density
+     against each chain alone and against the dense LML (value a point,
+     gradient within 5 MC SE of its probes); then
+     sample_hyperparams_checkpointed(engine="iterative") killed half way
+     and resumed (4 warm-up transitions, 4 draws of 8 leapfrog steps):
+     samples/s, s/transition, CG iterations, peak memory beside the
+     dense engine's, launch counters read around the two calls (the
+     iterative samplers path); a killed-and-resumed run bitwise equal
+     to an uninterrupted one at n=2048 for both engines.
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
 Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), one
-L-BFGS step and one loo() at config 2 (phase 6), and one HMC transition
-of 256 chains at config 3 (phase 7).
+L-BFGS step and one loo() at config 2 (phase 6), one HMC transition
+of 256 chains at config 3 (phase 7), and one evaluation of the 8-chain
+matrix-free log density at the last draws (phase 8).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1038,6 +1058,85 @@ def phase_batched(torch, dev, results, sizes=BATCH_SIZES, ns=BATCH_N,
     torch.cuda.empty_cache()
 
 
+MATVEC_BATCH = (1, 7, 8)
+MATVEC_BATCH_N = (32768, 5000)  # phase 8's n, and one not a tile multiple
+MATVEC_BATCH_R = (1, 17, 128)  # cg_diagnostic, CG for [y | 16 probes], wide
+
+
+def phase_batched_matvec(torch, dev, results, sizes=MATVEC_BATCH,
+                         ns=MATVEC_BATCH_N, rs=MATVEC_BATCH_R,
+                         timed=(8, 32768, 17)):
+    """The fused matvec on a batch of chains (phase 8's shape: d = 1, each
+    element its own lengthscale, sf2, diag_add): every element bitwise
+    equal to its 2-D launch, within phase 2's matvec bar of the plain
+    version; timed at B=8, n=32768, r=17 beside the loop of 2-D launches
+    and the plain version."""
+    from cugp_tpu_torch.ops import cov_matvec_cuda as cm
+
+    rng = np.random.default_rng(8)
+    rel_bar = 1e-4
+    worst = worst_rel = 0.0
+    Bmax = max(sizes)
+    for n in ns:
+        X = torch.as_tensor(rng.uniform(-10.0, 10.0, (n, 1)),
+                            dtype=torch.float32, device=dev)
+        ell = torch.as_tensor(rng.uniform(0.5, 1.2, (Bmax, 1)),
+                              dtype=torch.float32, device=dev)
+        xs_all = X / ell[:, None, :]
+        scal_all = torch.as_tensor(np.stack([
+            rng.uniform(0.5, 2.0, Bmax), rng.uniform(0.02, 0.2, Bmax),
+            np.ones(Bmax)], axis=-1), dtype=torch.float32, device=dev)
+        V = torch.as_tensor(rng.standard_normal((Bmax, n, max(rs) + 1)),
+                            dtype=torch.float32, device=dev)
+        for B in sizes:
+            xs, scal = xs_all[:B], scal_all[:B]
+            for r in rs:
+                v = V[:B, :, 1:1 + r]  # strided, as CG passes sol[..., 1:]
+                got = cm.cov_matvec(xs, v, scal, "rbf", n)
+                loop = torch.stack([cm.cov_matvec(xs[b], v[b], scal[b],
+                                                  "rbf", n)
+                                    for b in range(B)])
+                want = cm.cov_matvec_plain(xs, v, scal, "rbf", n)
+                torch.cuda.synchronize()
+                tag = f"B={B} n={n} r={r} ({cm.route(r)})"
+                if got.shape != (B, n, r) or not torch.isfinite(got).all():
+                    fail(f"cov_matvec batched {tag}: shape "
+                         f"{tuple(got.shape)} or non-finite")
+                if not torch.equal(got, loop):
+                    fail(f"cov_matvec batched {tag}: differs from the loop "
+                         "of 2-D launches")
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                if not err <= rel_bar * scale:
+                    fail(f"cov_matvec batched {tag}: max abs err {err:.3e} "
+                         f"over {rel_bar} max|plain| = {rel_bar * scale:.3e}")
+                worst = max(worst, err)
+                worst_rel = max(worst_rel, err / scale)
+                del got, loop, want
+            say("batched", kernel="cov_matvec", B=B, n=n, d=1,
+                rs=",".join(map(str, rs)), loop_bitwise=True,
+                max_rel_err=f"{worst_rel:.3e}")
+    B, n, r = timed
+    X = torch.as_tensor(rng.uniform(-10.0, 10.0, (n, 1)),
+                        dtype=torch.float32, device=dev)
+    xs = X / torch.as_tensor(rng.uniform(0.5, 1.2, (B, 1)),
+                             dtype=torch.float32, device=dev)[:, None, :]
+    scal = torch.tensor([[1.0, 0.05, 1.0]] * B, device=dev)
+    v = torch.as_tensor(rng.standard_normal((B, n, r)), dtype=torch.float32,
+                        device=dev)
+    b_ms, b_by = _matvec_bound(n, 1, r)
+    row = _time_batched(
+        torch, f"cov_matvec B={B} n={n} d=1 r={r}",
+        lambda: cm.cov_matvec(xs, v, scal, "rbf", n),
+        lambda: [cm.cov_matvec(xs[b], v[b], scal[b], "rbf", n)
+                 for b in range(B)],
+        lambda: cm.cov_matvec_plain(xs, v, scal, "rbf", n), None,
+        (B * b_ms, b_by))
+    row.update(max_abs_err=worst, max_rel_err=worst_rel,
+               route=cm.route(r))
+    results["cov_matvec"]["batched"] = {f"B={B} n={n} d=1 r={r}": row}
+
+
 def _wrappers():
     from cugp_tpu_torch.ops import (chol_cuda, cov_cuda, cov_matvec_cuda,
                                     trsm_cuda)
@@ -1141,6 +1240,39 @@ def phase_north_star(torch, dev, profile=False):
         recon_relerr=f"{relerr:.3e}", peak_bytes=peak)
     if not relerr < 2e-4:
         fail(f"north star: reconstruction relerr {relerr:.3e} (gate 2e-4)")
+    # the opt-in precision policies at the same shape, gated as the
+    # default on the first 4096 rows (bench.py's gate) for "high" and
+    # "mixed"; "high" also finite. "mixed" and "mixed_fast" are reported
+    # non-finite further down on an H100 (tools/chol_precision.py reads
+    # every row block; PERF.md §6, PR 10), so their finiteness is printed
+    # as a measurement
+    with torch.no_grad():
+        for policy in ("high", "mixed", "mixed_fast"):
+            t_p = cuda_ms(lambda: chol_ops.cholesky(K, precision=policy),
+                          iters=2, warmup=1) / 1e3
+            Lp = chol_ops.cholesky(K, precision=policy)
+            r = Lp[:nb] @ Lp[:nb].T - K[:nb, :nb]
+            rel_p = float(r.abs().max() / K[:nb, :nb].abs().max())
+            finite = bool(torch.isfinite(Lp).all())
+            del Lp, r
+            say("north_star", precision=policy, t_chol_s=f"{t_p:.5f}",
+                gflops=f"{flops / (t_cov + t_p) / 1e9:.2f}",
+                speedup_over_fp32=f"{t_chol / t_p:.4f}",
+                recon_relerr=f"{rel_p:.3e}", finite=finite)
+            if policy != "mixed_fast" and not rel_p < 2e-4:
+                fail(f"north star, precision={policy}: reconstruction "
+                     f"relerr {rel_p:.3e} (gate 2e-4)")
+            if policy == "high" and not finite:
+                fail("north star, precision=high: non-finite factor")
+        again = chol_ops.cholesky(K)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    say("north_star", default_bitwise_after_policies=bool(
+        torch.equal(again, L)), allow_tf32_after=tf32)
+    if not torch.equal(again, L):
+        fail("north star: the default factor changed after the policy calls")
+    if tf32:
+        fail("north star: allow_tf32 left on after the policy calls")
+    del again
     if profile:
         with torch.no_grad():
             profile_device(torch, "profile_chol",
@@ -1781,6 +1913,247 @@ def phase_samplers(torch, dev, profile=False, n=512, chains=256, warmup=64,
     return launches
 
 
+def _per_probe_grads(torch, lpg_args, q, precond, Z, block=2048):
+    """The gradient estimate of one chain state q (D,) split over its
+    probes: (P, D), whose mean is make_iterative_logprob's LML gradient
+    (without the prior) and whose spread gives its Monte Carlo standard
+    error. One batched AD sweep: element j is the estimator with probe j
+    alone, 1/2 (alpha^T K alpha - w_j^T K z_j)."""
+    from cugp_tpu_torch.inference import iterative
+
+    X, y, unravel, kind, tol = lpg_args
+    n, P = Z.shape
+    with torch.no_grad():
+        mv = iterative.make_matvec(unravel(q), X, kind=kind)
+        sol, _ = iterative.cg_solve(
+            mv, torch.cat([y[:, None], Z], dim=1), tol=tol, max_iters=500,
+            precond_apply=iterative.precond_apply_from_factors(*precond))
+    alpha, w = sol[:, 0], sol[:, 1:]
+    qs = q.expand(P, -1).clone().requires_grad_(True)
+    with torch.enable_grad():
+        mvp = iterative.make_matvec(unravel(qs), X, kind=kind, block=block,
+                                    method="blocked")
+        rhs = torch.stack([alpha.expand(P, n), Z.mT], dim=-1)  # (P, n, 2)
+        out = mvp(rhs)
+        est = 0.5 * (torch.sum(alpha * out[..., 0], dim=-1)
+                     - torch.sum(w.mT * out[..., 1], dim=-1))
+        (g,) = torch.autograd.grad(est.sum(), qs)
+    return g
+
+
+def phase_iterative_sampling(torch, dev, profile=False, n=32768, chains=8,
+                             warmup=4, draws=4, n_leapfrog=8, probes=16,
+                             steps=32, rank=128, n_gate=8, resume_n=2048):
+    """Matrix-free hyperparameter HMC at n=32768 (benchmarks/bench_hmc.py's
+    iterative engine: sinusoid_1d(n), rbf, init lengthscale 0.8, noise
+    0.05; 8 chains, 16 frozen probes, 32 SLQ steps, a rank-128
+    preconditioner, CG tol 1e-5), through
+    sample_hyperparams_checkpointed(engine="iterative"): half the draws
+    into a checkpoint, then a resumed call to all of them (cut to 4
+    warm-up transitions and 4 draws of 8 leapfrog steps; PERF.md §4).
+    Gates: the batched
+    density against each chain alone; against the dense exact LML (value
+    per point, gradient within 5 MC SE of its probes); finite draws; a
+    killed-and-resumed run bitwise at n=2048 for both engines."""
+    import shutil
+    import tempfile
+
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.inference import iterative, sampling
+    from cugp_tpu_torch.ops import kernels
+
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            say("iterative_hmc", FAILED=repr(what))
+            failures.append(what)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    tol = 1e-5
+    Xn, yn, _ = synthetic.sinusoid_1d(n=n, noise_std=0.1, seed=0)
+    X = torch.as_tensor(Xn, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(yn, dtype=torch.float32, device=dev)
+    init = kernels.init_params(d=1, lengthscale=0.8, noise_var=0.05,
+                               device=dev)
+    precond, t_pre = synced(lambda: iterative.precond_factors(init, X, rank))
+    lpg, unravel, q0 = sampling.make_iterative_logprob(
+        init, X, y, num_probes=probes, num_steps=steps, tol=tol,
+        precond=precond)
+    Z = iterative.rademacher(n, probes, dev,
+                             gen(sampling.DEFAULT_PROBE_SEED))  # lpg's
+    qs = sampling.init_chains(q0, gen(2), chains)
+    lpg(qs)  # kernel loads and the allocator's first buffers
+    (logp, grad), t_eval = synced(lambda: lpg(qs))
+    say("iterative_hmc", n=n, chains=chains, probes=probes, slq_steps=steps,
+        precond_rank=rank, precond_s=f"{t_pre:.4f}",
+        eval_s=f"{t_eval:.4f}",
+        cg_diagnostic_init=sampling.cg_diagnostic(init, precond, X, y,
+                                                  tol=tol))
+
+    # (a) each chain alone on the same probes and factors
+    worst_lp = worst_g = 0.0
+    for i in range(chains):
+        lp1, g1 = lpg(qs[i:i + 1])
+        worst_lp = max(worst_lp, abs(float(lp1[0]) - float(logp[i]))
+                       / abs(float(logp[i])))
+        worst_g = max(worst_g, float((g1[0] - grad[i]).abs().max()
+                                     / grad[i].abs().max()))
+    say("iterative_hmc", case="batched against each chain alone",
+        rel_err_logp=f"{worst_lp:.3e}", rel_err_grad=f"{worst_g:.3e}")
+    gate(worst_lp <= 1e-5 and worst_g <= 1e-4,
+         "batched matrix-free density off each chain alone (log density "
+         "1e-5 rel, gradient 1e-4 of its largest component)")
+
+    # (b) against the dense exact LML, one chain at a time
+    dense, _, _ = sampling.make_flat_logprob(init, X, y)
+    worst_v, worst_z, dense_peak = 0.0, 0.0, 0
+    for i in range(min(n_gate, chains)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lp_d, g_d = dense(qs[i:i + 1])
+        torch.cuda.synchronize()
+        dense_peak = max(dense_peak, torch.cuda.max_memory_allocated())
+        gp = _per_probe_grads(torch, (X, y, unravel, "rbf", tol), qs[i],
+                              precond, Z)
+        se = gp.std(0, correction=1) / probes ** 0.5
+        z = ((grad[i] - g_d[0]).abs() / se).cpu().numpy()
+        dv = abs(float(logp[i]) - float(lp_d[0])) / n
+        worst_v, worst_z = max(worst_v, dv), max(worst_z, float(z.max()))
+        say("iterative_hmc", case=f"chain {i} against the dense LML",
+            logp=f"{float(logp[i]):.4f}", logp_dense=f"{float(lp_d[0]):.4f}",
+            err_per_point=f"{dv:.3e}",
+            grad=",".join(f"{v:.4f}" for v in grad[i].tolist()),
+            grad_dense=",".join(f"{v:.4f}" for v in g_d[0].tolist()),
+            grad_gap_in_se=",".join(f"{v:.3f}" for v in z))
+        del gp
+    gate(worst_v <= 0.05, "matrix-free log density off the dense one by "
+         "more than 0.05 a point (phase 5's SLQ bar)")
+    gate(worst_z <= 5.0, "matrix-free gradient over 5 MC SE off the dense "
+         "one")
+    del dense
+    torch.cuda.empty_cache()
+
+    # (c) the main path: the checkpointed sampler, killed half way; the
+    # preconditioner builds and each batched CG solve's iterations (the
+    # slowest chain's, which the loop runs, and the chains' mean) counted
+    builds, cg_max, cg_mean = [0], [], []
+    build, solve = iterative.precond_factors, iterative.cg_solve
+
+    def counted(*a, **kw):
+        builds[0] += 1
+        return build(*a, **kw)
+
+    def counted_solve(*a, **kw):
+        x, its = solve(*a, **kw)
+        if isinstance(its, torch.Tensor):
+            cg_max.append(int(its.max()))
+            cg_mean.append(float(its.double().mean()))
+        return x, its
+
+    iterative.precond_factors = counted
+    iterative.cg_solve = counted_solve
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    kw = dict(checkpoint_every=draws // 2, num_chains=chains,
+              num_warmup=warmup,
+              sampler="hmc", n_leapfrog=n_leapfrog, engine="iterative",
+              cg_tol=tol, num_probes=probes, num_steps=steps,
+              precond_rank=rank)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        part, t_part = synced(lambda: sampling.sample_hyperparams_checkpointed(
+            init, X, y, checkpoint_dir=os.path.join(tmp, "run"),
+            num_samples=draws // 2, rng=gen(3), **kw))
+        out, t_rest = synced(lambda: sampling.sample_hyperparams_checkpointed(
+            init, X, y, checkpoint_dir=os.path.join(tmp, "run"),
+            num_samples=draws, rng=gen(3), **kw))
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        iterative.precond_factors, iterative.cg_solve = build, solve
+        shutil.rmtree(tmp, ignore_errors=True)
+    flat = out["samples_flat"]
+    end = unravel(flat[-1].mean(0))
+    cg_end = sampling.cg_diagnostic(end, precond, X, y, tol=tol)
+    seg_iters = part["cg_iters_per_segment"] + out["cg_iters_per_segment"]
+    transitions = draws - draws // 2
+    dense_est = chains * dense_peak
+    say("iterative_hmc", sampler="hmc", chains=chains, warmup=warmup,
+        draws=draws, leapfrog=n_leapfrog, first_call_s=f"{t_part:.3f}",
+        resumed_call_s=f"{t_rest:.3f}", resumed=out["resumed"],
+        samples_per_s=f"{draws * chains / (t_part + t_rest):.4f}",
+        s_per_transition=f"{t_rest / transitions:.4f}",
+        accept_rate=f"{float(out['accept_rate']):.4f}",
+        eps=f"{float(out['eps']):.5f}",
+        cg_iters_per_segment=",".join(f"{v:.0f}" for v in seg_iters),
+        precond_refreshes=builds[0] - 1,
+        cg_diagnostic_end=f"{cg_end:.0f}", evaluations=len(cg_max),
+        cg_iters_slowest_chain_mean=f"{np.mean(cg_max):.2f}",
+        cg_iters_slowest_chain_max=max(cg_max),
+        cg_iters_chain_mean=f"{np.mean(cg_mean):.2f}", peak_bytes=peak,
+        dense_engine_bytes_est=dense_est,
+        launches=json.dumps(launches, separators=(",", ":")))
+    gate(part["draws_done"] == draws // 2 and not part["resumed"]
+         and out["resumed"] and out["draws_done"] == draws
+         and tuple(flat.shape) == (draws, chains, q0.numel()),
+         "the checkpointed run did not resume to the full draw count")
+    gate(bool(torch.equal(flat[:draws // 2], part["samples_flat"])),
+         "the resumed run changed the first call's draws")
+    gate(bool(torch.isfinite(flat).all()), "non-finite draws")
+    for name, count in launches.items():
+        gate(count > 0, f"the {name} kernel was never launched")
+
+    # (d) killed-and-resumed equals uninterrupted, both engines, n=2048
+    Xs = X[:: n // resume_n][:resume_n].contiguous()
+    ys = y[:: n // resume_n][:resume_n].contiguous()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        for engine, extra in (("dense", {}), ("iterative", dict(
+                precond_rank=rank, num_probes=probes, num_steps=steps,
+                refresh_factor=1e-3))):
+            small = dict(checkpoint_every=2, num_chains=4, num_warmup=4,
+                         sampler="hmc", n_leapfrog=4, engine=engine,
+                         **extra)
+
+            def run(name, k):
+                return sampling.sample_hyperparams_checkpointed(
+                    init, Xs, ys, checkpoint_dir=os.path.join(tmp, name),
+                    num_samples=k, rng=gen(4), **small)
+
+            full = run(engine + "_full", 6)
+            run(engine + "_part", 2)
+            res = run(engine + "_part", 6)
+            same = bool(torch.equal(res["samples_flat"],
+                                    full["samples_flat"]))
+            say("iterative_hmc", case="killed and resumed", engine=engine,
+                n=resume_n, chains=4, draws=6, resumed=res["resumed"],
+                bitwise=same)
+            gate(same and res["resumed"],
+                 f"{engine} engine: resumed draws differ from the "
+                 "uninterrupted run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("iterative_hmc", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    if failures:
+        fail("iterative samplers: " + "; ".join(failures))
+    if profile:  # one evaluation of the 8 chains at their last draws
+        last = flat[-1].contiguous()
+        profile_device(torch, "profile_iterative_eval", lambda: lpg(last))
+    return launches
+
+
 def profile_device(torch, tag, fn):
     """fn() under torch.profiler: device time by kernel, and the host
     wall around it (its idle share is 1 - busy / wall)."""
@@ -1831,7 +2204,7 @@ def main(argv):
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
     phases = {int(v) for v in
-              opts.get("--phases", "0,1,2,3,4,5,6,7").split(",")}
+              opts.get("--phases", "0,1,2,3,4,5,6,7,8").split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
@@ -1842,6 +2215,7 @@ def main(argv):
         phase_trsm(torch, dev, results, profile="--profile" in opts)
         phase_cov_matvec(torch, dev, results)
         phase_batched(torch, dev, results)
+        phase_batched_matvec(torch, dev, results)
     if 3 in phases:
         paths["dense"] = phase_main(torch, dev, profile="--profile" in opts)
     if 4 in phases:
@@ -1855,7 +2229,10 @@ def main(argv):
     if 7 in phases:
         paths["samplers"] = phase_samplers(torch, dev,
                                            profile="--profile" in opts)
-    if phases != {0, 1, 2, 3, 4, 5, 6, 7}:
+    if 8 in phases:
+        paths["iterative_samplers"] = phase_iterative_sampling(
+            torch, dev, profile="--profile" in opts)
+    if phases != set(range(9)):
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

@@ -42,6 +42,13 @@
 //                FMAs). Above 128 columns, 128-column chunks are a grid
 //                axis, each rebuilding K once.
 //
+// A batch (chains of the samplers: X scaled by each element's lengthscales
+// (B, n, d), V (B, n, r), each element its own sf2, diag_add and family
+// scalar) is the same two launches with the element as a grid index: the
+// pre-pass's y, the narrow route's y, the wide route's z. Each element has
+// its own slice of the scratch and runs exactly the 2-D launch's code on
+// it, so it equals its 2-D launch bitwise (a 2-D call is B = 1).
+//
 // Both routes: any d (32-feature chunks staged in turn), all six kinds
 // (the five besides rbf keep cov_epilogue.cuh's formulas on the same
 // hoisted norms), n and r unpadded at the interface, no atomics: each
@@ -122,12 +129,22 @@ struct Scratch {
   float* xs;  // (npad, dp)
   float* h;   // (npad,)
   float* vp;  // (npad, vw)
+  // the same three arrays of batch element e, `floats` on per element
+  __device__ __forceinline__ Scratch at(int e, long long floats) const {
+    const long long o = e * floats;
+    return Scratch{xs + o, h + o, vp + o};
+  }
 };
 
 __global__ void __launch_bounds__(THREADS)
 cov_matvec_prep(const float* __restrict__ x, const float* __restrict__ v,
                 Scratch o, int n, int d, int dp, int npad, float scale,
-                int r, int vw, long long vrs, long long vcs) {
+                int r, int vw, long long xbs, long long vbs, long long vrs,
+                long long vcs, long long sfloats) {
+  // batch element blockIdx.y
+  x += blockIdx.y * xbs;
+  v += blockIdx.y * vbs;
+  o = o.at(blockIdx.y, sfloats);
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   const long long first = static_cast<long long>(blockIdx.x) * THREADS +
                           threadIdx.x;
@@ -251,7 +268,11 @@ template <int KIND, int RC>
 __global__ void __launch_bounds__(THREADS, 2)
 cov_matvec_narrow(Scratch g, const float* __restrict__ scal,
                   float* __restrict__ out, int n, int dp, int r,
-                  long long ldo) {
+                  long long ldo, long long obs, long long sfloats) {
+  // batch element blockIdx.y: its scratch, scalars and output
+  g = g.at(blockIdx.y, sfloats);
+  scal += 3 * blockIdx.y;
+  out += blockIdx.y * obs;
   constexpr int R = narrow_rows(RC);
   constexpr int BM = 32 * R;
   constexpr int VS = narrow_vstride(RC);
@@ -368,7 +389,11 @@ template <int KIND>
 __global__ void __launch_bounds__(THREADS, 2)
 cov_matvec_wide(Scratch g, const float* __restrict__ scal,
                 float* __restrict__ out, int n, int dp, int r, int rp,
-                long long ldo) {
+                long long ldo, long long obs, long long sfloats) {
+  // batch element blockIdx.z: its scratch, scalars and output
+  g = g.at(blockIdx.z, sfloats);
+  scal += 3 * blockIdx.z;
+  out += blockIdx.z * obs;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -499,8 +524,8 @@ struct Args {
   Scratch g;
   const float* scal;
   float* out;
-  int n, dp, r, rp, npad;
-  long long ldo;
+  int n, dp, r, rp, npad, batch;
+  long long ldo, obs, sfloats;
   cudaStream_t stream;
 };
 
@@ -522,9 +547,10 @@ cudaError_t launch_narrow(const Args& a) {
   if (err != cudaSuccess) return err;
   const int bm = 32 * narrow_rows(RC);
   const int dch = a.dp < DC ? a.dp : DC;
-  cov_matvec_narrow<KIND, RC><<<a.npad / bm, THREADS, narrow_smem(RC, dch),
+  const dim3 grid(a.npad / bm, a.batch);
+  cov_matvec_narrow<KIND, RC><<<grid, THREADS, narrow_smem(RC, dch),
                                 a.stream>>>(a.g, a.scal, a.out, a.n, a.dp,
-                                            a.r, a.ldo);
+                                            a.r, a.ldo, a.obs, a.sfloats);
   return cudaGetLastError();
 }
 
@@ -533,9 +559,9 @@ cudaError_t launch_wide(const Args& a) {
   cudaError_t err = raise_smem_once<cov_matvec_wide<KIND>>(wide_smem(DC));
   if (err != cudaSuccess) return err;
   const int dch = a.dp < DC ? a.dp : DC;
-  const dim3 grid(a.npad / WBM, a.rp / WVW);
+  const dim3 grid(a.npad / WBM, a.rp / WVW, a.batch);
   cov_matvec_wide<KIND><<<grid, THREADS, wide_smem(dch), a.stream>>>(
-      a.g, a.scal, a.out, a.n, a.dp, a.r, a.rp, a.ldo);
+      a.g, a.scal, a.out, a.n, a.dp, a.r, a.rp, a.ldo, a.obs, a.sfloats);
   return cudaGetLastError();
 }
 
@@ -564,33 +590,38 @@ extern "C" int cugp_cov_matvec_width(int r) {
   return r <= NARROW_MAX ? narrow_rc(r) : WVW;
 }
 
-// Floats of the scratch cugp_cov_matvec takes for (n, d, r); -1 past
-// INT_MAX.
+// Floats of the scratch cugp_cov_matvec takes for one element of (n, d,
+// r); -1 past INT_MAX.
 extern "C" int cugp_cov_matvec_scratch(int n, int d, int r) {
   if (n <= 0 || d <= 0 || r <= 0) return 0;
   const long long f = scratch_floats(plan(n, d, r));
   return f > INT_MAX ? -1 : static_cast<int>(f);
 }
 
-// x (n, d) row-major fp32, already divided by the lengthscale; v (n, r)
-// fp32 with element strides (vrs, vcs); scal = [sf2, diag_add, alpha] on
-// the device; out (n, r) with leading dimension ldo; scratch:
+// A batch of `batch` elements (1 for a 2-D call): element e has rows
+// x + e xbs ((n, d) row-major fp32, already divided by its lengthscale),
+// v + e vbs ((n, r) fp32 with element strides (vrs, vcs)), scalars
+// scal + 3 e = [sf2, diag_add, alpha] on the device, and output out + e obs
+// ((n, r) with leading dimension ldo). scratch: batch times
 // cugp_cov_matvec_scratch(n, d, r) floats, 16-byte aligned. kind: 0 rbf,
 // 1 matern12, 2 matern32, 3 matern52, 4 rq, 5 linear. Two launches: the
 // pre-pass, then the route's kernel.
 extern "C" int cugp_cov_matvec(const float* x, const float* v,
                                const float* scal, float* out, float* scratch,
-                               int n, int d, int r, long long vrs,
-                               long long vcs, long long ldo, int kind,
+                               int n, int d, int r, int batch, long long xbs,
+                               long long vbs, long long vrs, long long vcs,
+                               long long obs, long long ldo, int kind,
                                void* stream) {
-  if (n <= 0 || r <= 0) return 0;
-  if (d <= 0 || kind < RBF || kind > LINEAR ||
+  if (n <= 0 || r <= 0 || batch <= 0) return 0;
+  if (d <= 0 || kind < RBF || kind > LINEAR || batch > 65535 ||
       (reinterpret_cast<size_t>(scratch) & 15) != 0)
     return cudaErrorInvalidValue;
   const Plan p = plan(n, d, r);
   if (scratch_floats(p) > INT_MAX || p.vw / WVW > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // each element's slice starts 16-byte aligned: npad is a multiple of 128
+  const long long sfloats = scratch_floats(p);
   Scratch g;
   g.xs = scratch;
   g.h = g.xs + static_cast<long long>(p.npad) * p.dp;
@@ -599,12 +630,13 @@ extern "C" int cugp_cov_matvec(const float* x, const float* v,
                          (p.vw > p.dp ? p.vw : p.dp);
   const int blocks = static_cast<int>(
       work / THREADS + 1 < 2048 ? work / THREADS + 1 : 2048);
-  cov_matvec_prep<<<blocks, THREADS, 0, s>>>(
+  cov_matvec_prep<<<dim3(blocks, batch), THREADS, 0, s>>>(
       x, v, g, n, d, p.dp, p.npad, kind == RBF ? SQRT_LOG2E : 1.0f, r, p.vw,
-      vrs, vcs);
+      xbs, vbs, vrs, vcs, sfloats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{g, scal, out, n, p.dp, r, p.vw, p.npad, ldo, s};
+  const Args a{g,     scal, out, n,       p.dp, r, p.vw,
+               p.npad, batch, ldo, obs, sfloats, s};
   switch (kind) {
     case RBF: err = launch_kind<RBF>(p, a); break;
     case MATERN12: err = launch_kind<MATERN12>(p, a); break;

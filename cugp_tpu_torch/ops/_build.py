@@ -52,11 +52,13 @@ _SIGNATURES = {
     "cugp_trsm": [_p, _ll, _p, _ll, _ll, _i, _i, _i, _p, _i, _ll, _ll, _p],
     # n: floats of the scratch cugp_trsm takes for one (n, n) L
     "cugp_trsm_scratch": [_i],
-    # x, v, scal, out, scratch, n, d, r, v_row_stride, v_col_stride, ldo,
+    # x, v, scal, out, scratch, n, d, r, batch, x_batch_stride,
+    # v_batch_stride, v_row_stride, v_col_stride, out_batch_stride, ldo,
     # kind, stream
-    "cugp_cov_matvec": [_p, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _i,
-                        _p],
-    # n, d, r: floats of the scratch cugp_cov_matvec takes (-1: too many)
+    "cugp_cov_matvec": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll,
+                        _ll, _ll, _ll, _i, _p],
+    # n, d, r: floats of the scratch cugp_cov_matvec takes an element (-1:
+    # too many)
     "cugp_cov_matvec_scratch": [_i, _i, _i],
     # r: V columns a CTA holds (<= 32: the narrow route; 128: the wide one)
     "cugp_cov_matvec_width": [_i],

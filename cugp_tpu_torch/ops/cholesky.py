@@ -13,12 +13,44 @@ writes L11 into its diagonal block (the potrf kernel on CUDA), the TRSM
 overwrites A21 with L21, ``addmm_(..., alpha=-1)`` updates the lower part
 of A22, and the strict upper triangle is zeroed at the end. Peak memory
 is K plus this one buffer (4.3 GB + 4.3 GB at N = 32768), not a stack of
-per-level copies. The GEMMs stay torch matmuls in true fp32, as the JAX
-package leaves them to XLA.
+per-level copies. The GEMMs stay torch matmuls, as the JAX package
+leaves them to XLA: in true fp32 by default (TF32 off).
+
+Precision policies (``cholesky(precision=...)``, opt-in, as the JAX
+package's ``cugp_tpu/ops/cholesky.py:56-131``):
+  None / "highest"  every GEMM in true fp32 (the default);
+  "high"            every GEMM (SYRK updates and the panel TRSM's) in
+                    split TF32: each operand split into TF32 hi + lo,
+                    hi.lo + lo.hi + hi.hi on the tensor cores into the
+                    fp32 sum (the TPU's HIGH is bf16_3x, three bf16
+                    passes: the same idea);
+  "mixed"           true fp32 on the diagonal path (potrf, the panel
+                    TRSM, the SYRK quadrants that hold the diagonal down
+                    to _MIXED_DIAG); the strictly-off-diagonal SYRK
+                    quadrants in split TF32;
+  "mixed_fast"      the diagonal path in split TF32, the strictly-off-
+                    diagonal quadrants in one TF32 pass (10 mantissa
+                    bits).
+TF32 is switched on only around those GEMMs (``trsm.tf32_matmul``) and
+is off everywhere else. On CPU tensors the same TF32 splits multiply in
+fp32, which emulates the tensor cores up to accumulation order. The
+base blocks (the potrf kernel) are fp32 under every policy.
+
+On an H100 80GB HBM3 at 700 W, at the north star (N=32768, d=8;
+tools/chol_precision.py, PERF.md §6) "high" takes 0.291 s against
+0.316 s in fp32, with a reconstruction error up to 1.4e-4 over the row
+blocks (fp32: up to 6.2e-5); "mixed" and "mixed_fast" return factors
+that are NaN from rows 14738 and 12766 on. Multiplied in fp32 on the
+same TF32 operands, "mixed" is finite and as accurate as fp32, so it is
+the tensor cores' own accumulation error, on the off-diagonal blocks
+but not on the diagonal ones, that leaves a Schur complement
+indefinite. Check the whole factor before trusting a policy.
 
 The backward is Murray's Cholesky rule (Murray 2016, eq. 8-10) as an
 autograd Function; its two n x n solves run through the recursive
-``solve_ltx_``, so they also use the TRSM kernel on CUDA.
+``solve_ltx_``, so they also use the TRSM kernel on CUDA. It runs in
+true fp32 whatever the forward's policy, as the JAX package's
+``_cholesky_bwd`` ignores ``precision``.
 
 A batch (B, n, n) (chains or Monte Carlo draws as a leading dimension)
 runs the same recursion with batched SYRK/GEMM updates (``baddbmm_``),
@@ -39,21 +71,37 @@ from cugp_tpu_torch.ops.blocking import split_point as _split_point
 # recursion skips the strictly-upper quadrant (as cholesky._SYRK_FULL).
 _SYRK_FULL = 4096
 
+# The mixed policies: quadrants that hold the diagonal keep the diagonal
+# path's precision down to this size; strictly-off-diagonal update GEMMs
+# take the lower one (cholesky._MIXED_DIAG).
+_MIXED_DIAG = 4096
 
-def _syrk_lower_(a, p):
-    """a -= p p^T on the (block) lower triangle; the upper is left stale."""
+# policy -> (GEMM precision of the diagonal path, of the strictly-off-
+# diagonal SYRK quadrants or None for the same)
+POLICIES = {None: ("highest", None), "highest": ("highest", None),
+            "high": ("high", None), "mixed": ("highest", "high"),
+            "mixed_fast": ("high", "default")}
+
+
+def _syrk_lower_(a, p, precision="highest", offdiag=None):
+    """a -= p p^T on the (block) lower triangle; the upper is left stale.
+    offdiag: the strictly-off-diagonal quadrants' precision (the mixed
+    policies), the quadrants holding the diagonal recursing at
+    `precision` down to _MIXED_DIAG."""
     n = a.shape[-1]
-    if n <= _SYRK_FULL:
-        trsm_ops.sub_mm_(a, p, p.mT)
+    if n <= (_SYRK_FULL if offdiag is None else _MIXED_DIAG):
+        trsm_ops.sub_mm_(a, p, p.mT, precision)
         return
     m = _split_point(n)
-    _syrk_lower_(a[..., :m, :m], p[..., :m, :])
-    trsm_ops.sub_mm_(a[..., m:, :m], p[..., m:, :], p[..., :m, :].mT)
-    _syrk_lower_(a[..., m:, m:], p[..., m:, :])
+    _syrk_lower_(a[..., :m, :m], p[..., :m, :], precision, offdiag)
+    trsm_ops.sub_mm_(a[..., m:, :m], p[..., m:, :], p[..., :m, :].mT,
+                     precision if offdiag is None else offdiag)
+    _syrk_lower_(a[..., m:, m:], p[..., m:, :], precision, offdiag)
 
 
-def _chol_(a):
-    """Factor the lower triangle of a (n, n) or (B, n, n) view in place.
+def _chol_(a, precision="highest", offdiag=None):
+    """Factor the lower triangle of a (n, n) or (B, n, n) view in place,
+    the GEMMs at `precision` (and `offdiag`, see _syrk_lower_).
 
     Diagonal blocks come out lower with zeros above; the strictly-upper
     off-diagonal blocks keep stale values (cholesky zeroes them)."""
@@ -62,10 +110,10 @@ def _chol_(a):
         chol_cuda.potrf_(a)
         return
     m = _split_point(n)
-    _chol_(a[..., :m, :m])
-    trsm_ops.solve_xlt_(a[..., :m, :m], a[..., m:, :m])
-    _syrk_lower_(a[..., m:, m:], a[..., m:, :m])
-    _chol_(a[..., m:, m:])
+    _chol_(a[..., :m, :m], precision, offdiag)
+    trsm_ops.solve_xlt_(a[..., :m, :m], a[..., m:, :m], precision)
+    _syrk_lower_(a[..., m:, m:], a[..., m:, :m], precision, offdiag)
+    _chol_(a[..., m:, m:], precision, offdiag)
 
 
 def _murray_backward(l, l_bar):
@@ -82,9 +130,9 @@ def _murray_backward(l, l_bar):
 
 class _Cholesky(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a):
+    def forward(ctx, a, precision, offdiag):
         l = a.detach().clone(memory_format=torch.contiguous_format)
-        _chol_(l)
+        _chol_(l, precision, offdiag)
         l.tril_()
         ctx.save_for_backward(l)
         return l
@@ -92,7 +140,7 @@ class _Cholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, l_bar):
         (l,) = ctx.saved_tensors
-        return _murray_backward(l, l_bar)
+        return _murray_backward(l, l_bar), None, None
 
 
 def cholesky(a, method="auto", precision=None):
@@ -100,14 +148,15 @@ def cholesky(a, method="auto", precision=None):
     or of each of a (B, n, n) batch; only the lower triangle is read.
 
     method: 'auto' or 'pallas' — the kernels for CUDA tensors, the plain
-    versions for CPU tensors. precision: only true fp32 (None) is ported.
+    versions for CPU tensors. precision: None or "highest" (true fp32,
+    the default), "high", "mixed" or "mixed_fast" (the module docstring);
+    the gradient is true fp32 under each.
     """
     trsm_ops.check_method(method)
-    if precision is not None:
-        raise NotImplementedError(
-            "the TPU precision policies (HIGH, 'mixed', 'mixed_fast') are "
-            "not ported; see ROADMAP.md, slice 1")
+    if precision not in POLICIES:
+        raise ValueError(f"unknown precision policy {precision!r}; "
+                         f"expected one of {tuple(POLICIES)}")
     if a.ndim not in (2, 3) or a.shape[-2] != a.shape[-1]:
         raise ValueError(f"cholesky takes (n, n) or (B, n, n), got "
                          f"{tuple(a.shape)}")
-    return _Cholesky.apply(a)
+    return _Cholesky.apply(a, *POLICIES[precision])

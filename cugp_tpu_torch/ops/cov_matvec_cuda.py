@@ -18,6 +18,11 @@ product; what bounds it is the fp32 FMA pipe. Sums run in a fixed order (no
 atomics: bitwise reproducible; in the narrow route a column's output does
 not depend on r). Any d, n and r, V with any strides.
 
+A batch (the samplers' chains: xs (B, n, d), v (B, n, r), scal (B, 3))
+is the same two launches with the element as a grid index (the
+pre-pass's and the narrow route's y, the wide route's z), each element
+on its own scratch slice, so each equals its 2-D call bitwise.
+
 ``cov_matvec`` launches the kernel for CUDA tensors and runs
 ``cov_matvec_plain`` (row blocks of ``cov_cuda.cov_tile_plain`` times V)
 for CPU tensors; ``LAUNCHES`` counts its calls that launched (a pre-pass
@@ -43,14 +48,15 @@ _NO_GRAD = ("the fused covariance matvec has no backward; differentiate "
 def cov_matvec_plain(xs, v, scal, kind, n, block=4096):
     """The fused matvec in torch ops: row blocks of the cross tile times V.
 
-    xs (>= n, d) scaled rows, v (>= n, r), scal [sf2, diag_add, alpha].
-    Returns the (n, r) product over the first n rows and columns.
+    xs (>= n, d) scaled rows, v (>= n, r), scal [sf2, diag_add, alpha];
+    or a batch: xs (B, >= n, d), v (B, >= n, r), scal (B, 3). Returns the
+    (n, r) (or (B, n, r)) product over the first n rows and columns.
     """
-    cols, v = xs[:n], v[:n]
-    out = [cov_cuda.cov_tile_plain(xs[lo:min(lo + block, n)], cols, scal,
-                                   kind, False, min(block, n - lo), n) @ v
-           for lo in range(0, n, block)]
-    return torch.cat(out) + scal[1] * v
+    cols, v = xs[..., :n, :], v[..., :n, :]
+    out = [cov_cuda.cov_tile_plain(xs[..., lo:min(lo + block, n), :], cols,
+                                   scal, kind, False, min(block, n - lo), n)
+           @ v for lo in range(0, n, block)]
+    return torch.cat(out, dim=-2) + scal[..., 1, None, None] * v
 
 
 def route(r):
@@ -62,7 +68,9 @@ def route(r):
 
 def cov_matvec(xs, v, scal, kind, n):
     """(K(xs, xs) + scal[1] I) @ v over the first n rows: the kernel on
-    CUDA, the plain version on CPU. v is (>= n, r) with any strides."""
+    CUDA, the plain version on CPU. v is (>= n, r) with any strides. A
+    batch: xs (B, >= n, d), v (B, >= n, r) (any strides), scal (B, 3),
+    one launch pair for all B; each element is bitwise its 2-D call."""
     global LAUNCHES
     if kind not in cov_cuda.KIND_CODES:
         raise ValueError(f"cov_matvec takes base families "
@@ -77,26 +85,36 @@ def cov_matvec(xs, v, scal, kind, n):
         if t.dtype != torch.float32 or t.device != xs.device:
             raise ValueError(f"cov_matvec: {name} must be float32 on "
                              f"{xs.device}, got {t.dtype} on {t.device}")
-    if (xs.ndim != 2 or v.ndim != 2 or xs.shape[0] < n or v.shape[0] < n
-            or scal.numel() != 3):
+    batched = xs.ndim == 3
+    *bs, rows, d = xs.shape
+    if (xs.ndim not in (2, 3) or v.ndim != xs.ndim
+            or tuple(v.shape[:-2]) != tuple(bs) or rows < n
+            or v.shape[-2] < n or tuple(scal.shape) != (*bs, 3)):
         raise ValueError(f"cov_matvec: shapes xs {tuple(xs.shape)}, "
                          f"v {tuple(v.shape)}, scal {tuple(scal.shape)}, "
                          f"n={n}")
+    batch = bs[0] if batched else 1
     xs, scal = xs.contiguous(), scal.contiguous()
-    d, r = xs.shape[1], v.shape[1]
-    out = torch.empty((n, r), dtype=torch.float32, device=xs.device)
+    r = v.shape[-1]
+    out = torch.empty((*bs, n, r), dtype=torch.float32, device=xs.device)
+    if batch == 0:
+        return out
     lib = _build.lib()
     floats = lib.cugp_cov_matvec_scratch(n, d, r)
     if floats < 0:
         raise ValueError(f"cov_matvec: n={n}, d={d}, r={r} needs a scratch "
-                         "past 2^31 floats")
-    # padded rows, half-norms and V: 6.8 MB at n = 100k, d = 4, r = 9
-    scratch = torch.empty(floats, dtype=torch.float32, device=xs.device)
+                         "past 2^31 floats an element")
+    # padded rows, half-norms and V an element: 6.8 MB at n = 100k, d = 4,
+    # r = 9
+    scratch = torch.empty(batch * floats, dtype=torch.float32,
+                          device=xs.device)
+    vbs = v.stride(0) if batched else 0
     with torch.cuda.device(xs.device):
         err = lib.cugp_cov_matvec(xs.data_ptr(), v.data_ptr(),
                                   scal.data_ptr(), out.data_ptr(),
-                                  scratch.data_ptr(), n, d, r, v.stride(0),
-                                  v.stride(1), out.stride(0),
+                                  scratch.data_ptr(), n, d, r, batch,
+                                  rows * d, vbs, v.stride(-2), v.stride(-1),
+                                  n * r, out.stride(-2),
                                   cov_cuda.KIND_CODES[kind],
                                   _build.stream_of(xs))
     _build.check(err, "cov_matvec")
@@ -108,18 +126,23 @@ def train_cov_matvec(params, X, v, kind="rbf", jitter=1e-6):
     """(K(X, X) + (noise + jitter * signal) I) @ v without forming K.
 
     The counterpart of ``cov_pallas.train_cov_matvec_pallas``; v is (n,)
-    or (n, r). Periodic runs as rbf on its cos/sin view, at any width.
+    or (n, r). Batched params (every leaf with a leading B, X shared)
+    take v (B, n) or (B, n, r) and run every element in one launch pair.
+    Periodic runs as rbf on its cos/sin view, at any width.
     """
     kernel_ops.require_base_kind(kind, "train_cov_matvec")
     if kind == "periodic":
         params, X = kernel_ops.periodic_rbf_view(params, X)
         kind = "rbf"
-    xs = (X / torch.exp(params["log_lengthscale"])).to(torch.float32)
+    batched = params["log_signal_var"].ndim == 1
+    xs = kernel_ops._scale(X, torch.exp(params["log_lengthscale"])).to(
+        torch.float32)
     sf2 = torch.exp(params["log_signal_var"])
     sn2 = torch.exp(params["log_noise_var"])
     scal = torch.stack([sf2, sn2 + jitter * sf2,
-                        kernel_ops.extra_scalar(params, kind)]).to(
+                        kernel_ops.extra_scalar(params, kind)], dim=-1).to(
                             torch.float32)
-    vec = v.ndim == 1
-    out = cov_matvec(xs, v[:, None] if vec else v, scal, kind, X.shape[0])
-    return out[:, 0] if vec else out
+    vec = v.ndim == (2 if batched else 1)
+    out = cov_matvec(xs, v[..., None] if vec else v, scal, kind,
+                     X.shape[-2])
+    return out[..., 0] if vec else out

@@ -5,6 +5,8 @@ Recursive blocked TRSM: the triangular factor is split at
 coupling term is one large GEMM (``addmm_``, true fp32). The base case
 (n <= _BASE) is the TRSM kernel for CUDA tensors and
 ``torch.linalg.solve_triangular`` for CPU tensors (``trsm_cuda.trsm_``).
+The in-place recursions take a GEMM precision for the Cholesky's
+precision policies (``sub_mm_``); the public solves stay in true fp32.
 The recursion works in place on the right-hand side; the public solves
 copy it once and carry an autograd rule whose backward is two more of
 the same solves. Every solve also takes a batch: L (B, n, n) with B
@@ -18,6 +20,8 @@ Solve variants (L lower triangular):
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -38,46 +42,104 @@ def check_method(method):
     raise ValueError(f"unknown method: {method!r}")
 
 
-def sub_mm_(c, a, b):
-    """c -= a @ b in place, true fp32: addmm_ for matrices, baddbmm_ for
-    a batch of them."""
+# GEMM precisions of the recursions, named as jax.lax.Precision's levels:
+# "highest" true fp32 (the default everywhere), "high" split TF32 (three
+# tensor-core passes, close to fp32, as the TPU's bf16_3x HIGH), "default"
+# one TF32 pass.
+GEMM_PRECISIONS = ("highest", "high", "default")
+
+
+def round_tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties to even):
+    the low 13 bits of each fp32 cleared."""
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + (0xFFF + ((bits >> 13) & 1))) & -0x2000
+    return bits.view(torch.float32)
+
+
+def split_tf32(x):
+    """(hi, lo), both exact TF32 values, with hi + lo = x to ~21 bits."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """TF32 tensor-core GEMMs inside, restored to the old setting (False
+    everywhere else in the port) on the way out, also on an exception.
+    The operands handed to the GEMMs are TF32 values already, so the
+    result does not depend on how the card converts fp32 to TF32; on the
+    CPU the same products of TF32 values run in fp32, exact up to
+    accumulation order."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _sub_(c, a, b):
     if c.ndim == 2:
         c.addmm_(a, b, alpha=-1.0)
     else:
         c.baddbmm_(a, b, alpha=-1.0)
 
 
-def solve_lx_(l, b):
-    """L X = B in place on b (n, k) or (B, n, k), any strides."""
+def sub_mm_(c, a, b, precision="highest"):
+    """c -= a @ b in place: addmm_ for matrices, baddbmm_ for a batch of
+    them. precision "highest" is true fp32; "high" is split TF32, the
+    small cross products hi.lo and lo.hi first, then hi.hi; "default" one
+    TF32 product."""
+    if precision == "highest":
+        _sub_(c, a, b)
+        return
+    with tf32_matmul():
+        if precision == "high":
+            ah, al = split_tf32(a)
+            bh, bl = split_tf32(b)
+            _sub_(c, ah, bl)
+            _sub_(c, al, bh)
+            _sub_(c, ah, bh)
+        elif precision == "default":
+            _sub_(c, round_tf32(a), round_tf32(b))
+        else:
+            raise ValueError(f"unknown GEMM precision {precision!r}; "
+                             f"expected one of {GEMM_PRECISIONS}")
+
+
+def solve_lx_(l, b, precision="highest"):
+    """L X = B in place on b (n, k) or (B, n, k), any strides; the
+    coupling GEMMs at `precision`."""
     n = l.shape[-1]
     if n <= _BASE:
         trsm_cuda.trsm_(l, b, left=True, transpose=False)
         return b
     m = _split_point(n)
-    solve_lx_(l[..., :m, :m], b[..., :m, :])
-    sub_mm_(b[..., m:, :], l[..., m:, :m], b[..., :m, :])
-    solve_lx_(l[..., m:, m:], b[..., m:, :])
+    solve_lx_(l[..., :m, :m], b[..., :m, :], precision)
+    sub_mm_(b[..., m:, :], l[..., m:, :m], b[..., :m, :], precision)
+    solve_lx_(l[..., m:, m:], b[..., m:, :], precision)
     return b
 
 
-def solve_ltx_(l, b):
+def solve_ltx_(l, b, precision="highest"):
     """L^T X = B in place on b (n, k) or (B, n, k), any strides."""
     n = l.shape[-1]
     if n <= _BASE:
         trsm_cuda.trsm_(l, b, left=True, transpose=True)
         return b
     m = _split_point(n)
-    solve_ltx_(l[..., m:, m:], b[..., m:, :])
-    sub_mm_(b[..., :m, :], l[..., m:, :m].mT, b[..., m:, :])
-    solve_ltx_(l[..., :m, :m], b[..., :m, :])
+    solve_ltx_(l[..., m:, m:], b[..., m:, :], precision)
+    sub_mm_(b[..., :m, :], l[..., m:, :m].mT, b[..., m:, :], precision)
+    solve_ltx_(l[..., :m, :m], b[..., :m, :], precision)
     return b
 
 
-def solve_xlt_(l, b):
+def solve_xlt_(l, b, precision="highest"):
     """X L^T = B in place on b (k, n) or (B, k, n): L X^T = B^T on b's
     transposed view, split at the same points as trsm.solve_xlt's column
     recursion."""
-    solve_lx_(l, b.mT)
+    solve_lx_(l, b.mT, precision)
     return b
 
 

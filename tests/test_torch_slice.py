@@ -109,14 +109,8 @@ def test_normalize_y_and_condition_match_jax(config2):
 
 
 def test_unported_options_raise():
-    """What stays unported raises: the precision policies (ROADMAP item
-    1e), the JAX package's XLA routes, an unknown kernel kind."""
-    from cugp_tpu_torch.ops import cholesky as chol_ops
-
-    K = torch.eye(8) * 2.0
-    for precision in ("high", "mixed", "mixed_fast"):
-        with pytest.raises(NotImplementedError, match="precision"):
-            chol_ops.cholesky(K, precision=precision)
+    """What stays unported raises: the JAX package's XLA routes, an
+    unknown kernel kind."""
     with pytest.raises(ValueError):
         cugp_tpu_torch.GP(kind="rbf", method="xla")
     with pytest.raises(ValueError):
