@@ -36,15 +36,18 @@ is off everywhere else. On CPU tensors the same TF32 splits multiply in
 fp32, which emulates the tensor cores up to accumulation order. The
 base blocks (the potrf kernel) are fp32 under every policy.
 
-On an H100 80GB HBM3 at 700 W, at the north star (N=32768, d=8;
-tools/chol_precision.py, PERF.md §6) "high" takes 0.291 s against
-0.316 s in fp32, with a reconstruction error up to 1.4e-4 over the row
-blocks (fp32: up to 6.2e-5); "mixed" and "mixed_fast" return factors
-that are NaN from rows 14738 and 12766 on. Multiplied in fp32 on the
-same TF32 operands, "mixed" is finite and as accurate as fp32, so it is
-the tensor cores' own accumulation error, on the off-diagonal blocks
-but not on the diagonal ones, that leaves a Schur complement
-indefinite. Check the whole factor before trusting a policy.
+The TF32 GEMMs run their contraction in chunks of trsm.TF32_K_CHUNK
+(4096). On an H100 80GB HBM3 at 700 W at the north star (N=32768, d=8;
+tools/chol_precision.py, PERF.md §6) unchunked "mixed" returned a factor
+that is NaN from row 14738 on (an indefinite Schur complement: the
+tensor cores' sum over k = 16384 lost too much on the off-diagonal
+blocks alone); in chunks of 4096 it is finite, its reconstruction error
+within 1.2x of fp32's on every 4096-row block, and "high"'s worst block reads
+5.8e-5 against fp32's 6.2e-5. Both are then only 3-4% faster than fp32
+(0.301 s and 0.306 s against 0.314 s): the operand splits cost what the
+tensor cores save. "mixed_fast" is NaN from row 12766 at every chunk
+size (its one-pass operands, in the CPU's fp32 emulation too). Check
+the whole factor before trusting a policy.
 
 The backward is Murray's Cholesky rule (Murray 2016, eq. 8-10) as an
 autograd Function; its two n x n solves run through the recursive

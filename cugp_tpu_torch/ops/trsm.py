@@ -48,6 +48,13 @@ def check_method(method):
 # one TF32 pass.
 GEMM_PRECISIONS = ("highest", "high", "default")
 
+# The k extent of one TF32 GEMM: longer contractions are cut into chunks
+# of this many, each summed on the tensor cores and added into c by the
+# GEMM's fp32 epilogue. Summed on the tensor cores over k = 16384, the
+# products lost enough that "mixed" left an indefinite Schur complement
+# at N = 32768 on an H100 (tools/chol_precision.py --k-chunk; PERF.md §6).
+TF32_K_CHUNK = 4096
+
 
 def round_tf32(x):
     """x rounded to TF32 (10 mantissa bits, to nearest, ties to even):
@@ -86,11 +93,18 @@ def _sub_(c, a, b):
         c.baddbmm_(a, b, alpha=-1.0)
 
 
+def _sub_tf32_(c, a, b):
+    """c -= a @ b on TF32 operands, TF32_K_CHUNK of k at a time."""
+    k = a.shape[-1]
+    for lo in range(0, k, TF32_K_CHUNK):
+        _sub_(c, a[..., lo:lo + TF32_K_CHUNK], b[..., lo:lo + TF32_K_CHUNK, :])
+
+
 def sub_mm_(c, a, b, precision="highest"):
     """c -= a @ b in place: addmm_ for matrices, baddbmm_ for a batch of
     them. precision "highest" is true fp32; "high" is split TF32, the
     small cross products hi.lo and lo.hi first, then hi.hi; "default" one
-    TF32 product."""
+    TF32 product; both in k chunks of TF32_K_CHUNK."""
     if precision == "highest":
         _sub_(c, a, b)
         return
@@ -98,11 +112,11 @@ def sub_mm_(c, a, b, precision="highest"):
         if precision == "high":
             ah, al = split_tf32(a)
             bh, bl = split_tf32(b)
-            _sub_(c, ah, bl)
-            _sub_(c, al, bh)
-            _sub_(c, ah, bh)
+            _sub_tf32_(c, ah, bl)
+            _sub_tf32_(c, al, bh)
+            _sub_tf32_(c, ah, bh)
         elif precision == "default":
-            _sub_(c, round_tf32(a), round_tf32(b))
+            _sub_tf32_(c, round_tf32(a), round_tf32(b))
         else:
             raise ValueError(f"unknown GEMM precision {precision!r}; "
                              f"expected one of {GEMM_PRECISIONS}")

@@ -163,3 +163,32 @@ def test_tf32_split_is_exact_to_21_bits():
         assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
     assert float(((hi - x).abs() / x.abs()).max()) <= 2.0 ** -11
     assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("precision,calls", [("high", 12), ("default", 4)])
+def test_tf32_gemms_sum_k_in_chunks(monkeypatch, precision, calls):
+    """A low-precision c -= a b runs its contraction in TF32_K_CHUNK
+    pieces (here 64 of k = 200: 4 a pass, 3 passes for "high"), each
+    added into c; the result is the unchunked one's up to fp32 sums of
+    other grouping (1e-5 relative: the products are exact on TF32
+    operands, so only the order of the fp32 sums differs)."""
+    rng = np.random.default_rng(3)
+    a = torch.tensor(rng.standard_normal((8, 200)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((200, 6)), dtype=torch.float32)
+    c0 = torch.tensor(rng.standard_normal((8, 6)), dtype=torch.float32)
+    whole = c0.clone()
+    ttrsm.sub_mm_(whole, a, b, precision)
+    seen = []
+    sub = ttrsm._sub_
+
+    def count(c, x, y):
+        seen.append(x.shape[-1])
+        return sub(c, x, y)
+
+    monkeypatch.setattr(ttrsm, "_sub_", count)
+    monkeypatch.setattr(ttrsm, "TF32_K_CHUNK", 64)
+    chunked = c0.clone()
+    ttrsm.sub_mm_(chunked, a, b, precision)
+    assert len(seen) == calls and max(seen) == 64
+    torch.testing.assert_close(chunked, whole, rtol=1e-5, atol=1e-5)
+

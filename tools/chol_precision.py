@@ -3,7 +3,7 @@
 row block.
 
     python3 tools/chol_precision.py [--n=32768] [--emulate] [--block=4096]
-                                    [--profile]
+                                    [--profile] [--k-chunk=0,4096]
 
 Builds bench.py's north-star covariance (X ~ U(-2, 2)^8 from numpy seed
 0, rbf, lengthscale 2, noise 1e-2) on the card, factors it under each
@@ -14,9 +14,11 @@ reconstruction error of every row block of `--block` rows, max |L L^T -
 K| over max |K| on that block row (chip_smoke.py phase 4 reads the first
 block only). --emulate runs the policies' TF32 GEMMs in fp32 on the same
 TF32-rounded operands (the CPU's emulation), to split the tensor cores'
-own accumulation from the operand rounding. --profile adds each policy's
-device time by kernel for one factorization (chip_smoke.profile_device).
-Needs one CUDA card.
+own accumulation from the operand rounding. --k-chunk runs the TF32
+policies once for each given trsm.TF32_K_CHUNK (0: the whole k in one
+GEMM; default: the module's). --profile adds each policy's device time
+by kernel for one factorization (chip_smoke.profile_device). Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ def main(argv):
     nb = int(opts.get("--block", 4096))
     if "--emulate" in opts:
         trsm_ops.tf32_matmul = contextlib.nullcontext
+    chunks = [int(c) for c in opts.get(
+        "--k-chunk", str(trsm_ops.TF32_K_CHUNK)).split(",")]
     dev = torch.device("cuda", 0)
     X = torch.as_tensor(np.random.default_rng(0).uniform(-2.0, 2.0, (n, d)),
                         dtype=torch.float32, device=dev)
@@ -56,7 +60,10 @@ def main(argv):
     with torch.no_grad():
         K = kernels.train_covariance(params, X)
         kmax = float(K.abs().max())
-        for policy in (None, "high", "mixed", "mixed_fast"):
+        runs = [(None, chunks[0])] + [(p, c) for c in chunks
+                                      for p in ("high", "mixed", "mixed_fast")]
+        for policy, chunk in runs:
+            trsm_ops.TF32_K_CHUNK = chunk or n
             times = []
             for _ in range(3):
                 start = torch.cuda.Event(enable_timing=True)
@@ -75,8 +82,8 @@ def main(argv):
                 res = L[r0:r1, :r1] @ L[:r1, :r1].T - K[r0:r1, :r1]
                 errs.append(float(res.abs().max()) / kmax)
                 del res
-            print(f"[chol_precision] n={n} policy={policy} emulate="
-                  f"{'--emulate' in opts} t_chol_s="
+            print(f"[chol_precision] n={n} policy={policy} k_chunk={chunk} "
+                  f"emulate={'--emulate' in opts} t_chol_s="
                   f"{statistics.median(times[1:]):.5f} finite="
                   f"{first_bad < 0} first_nonfinite_row={first_bad} "
                   f"min_diag={float(torch.diagonal(L).min()):.4e} "
