@@ -4,10 +4,12 @@ A port of ``cugp_tpu`` (the JAX/Pallas reference, which stays beside it):
 the dense exact-GP path — covariance build, recursive blocked Cholesky,
 triangular solves, LML and its gradient, MAP fit (Adam or L-BFGS, with
 restarts, priors, the LOO or basis objectives) and posterior predict,
-LOO, posterior draws, save/load — and the matrix-free CG/SLQ tier for N
-beyond the dense ceiling. The four Pallas kernels are CUDA C++ kernels for
-``sm_90a`` under ``csrc/``, built with ``nvcc`` on first use
-(``ops/_build.py``). CPU tensors take each kernel's plain PyTorch version.
+LOO, posterior draws, save/load — the matrix-free CG/SLQ tier for N
+beyond the dense ceiling, hyperparameter HMC/NUTS/VI, and the sparse
+(SGPR, SVGP) and classification (Laplace, EP, multiclass) families. The
+four Pallas kernels are CUDA C++ kernels for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` on first use (``ops/_build.py``). CPU
+tensors take each kernel's plain PyTorch version.
 
 This package imports ``torch``, numpy and scipy, never ``jax``.
 """
@@ -21,10 +23,11 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from cugp_tpu_torch.api import GP  # noqa: E402
+from cugp_tpu_torch.api import GP, GPClassifier, SVGP  # noqa: E402
 from cugp_tpu_torch.ops.kernels import (SUPPORTED_KERNELS,  # noqa: E402
                                         init_params)
 
 __version__ = "0.1.0"
 
-__all__ = ["GP", "init_params", "SUPPORTED_KERNELS", "__version__"]
+__all__ = ["GP", "GPClassifier", "SVGP", "init_params", "SUPPORTED_KERNELS",
+           "__version__"]

@@ -1,10 +1,12 @@
-"""User-facing API facade, as ``cugp_tpu/api.py``'s ``GP`` (dense and
-matrix-free parts, hyperparameter HMC/NUTS and VI, persistence).
+"""User-facing API facades, as ``cugp_tpu/api.py``'s ``GP`` (dense and
+matrix-free parts, the sparse SGPR fit, hyperparameter HMC/NUTS and VI,
+persistence), ``GPClassifier`` (Laplace, EP and multiclass GP
+classification) and ``SVGP``.
 
-``GP`` runs where its ``device`` says, "cuda" unless the caller asks for
-the CPU: data, hyperparameters and every kernel launch live there. There
-is no fallback: without a CUDA device, a GP left on "cuda" fails with
-torch's own error when data is placed.
+Each facade runs where its ``device`` says, "cuda" unless the caller
+asks for the CPU: data, hyperparameters and every kernel launch live
+there. There is no fallback: without a CUDA device, a facade left on
+"cuda" fails with torch's own error when data is placed.
 """
 
 from __future__ import annotations
@@ -321,7 +323,8 @@ class GP:
 
     def _rng(self, generator, draws):
         """The samplers' random numbers: explicit draws (an hmc.Draws),
-        else `generator`, else a generator on this GP's device seeded 0."""
+        else `generator`, else a CPU generator seeded 0 (its draws move to
+        this GP's device, so they are the same on every device)."""
         from cugp_tpu_torch.inference import hmc
 
         if draws is not None:
@@ -329,7 +332,7 @@ class GP:
                 raise TypeError("draws must be an hmc.Draws")
             return draws
         if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
+            generator = torch.Generator().manual_seed(0)
         return hmc.Draws(generator)
 
     def _sampler_init(self, init):
@@ -346,7 +349,7 @@ class GP:
                            chain_block=0):
         """Posterior over hyperparameters via NUTS/HMC (inference/
         sampling), the chains one batch on this GP's device. generator: a
-        torch.Generator on that device (seeded 0 when None); or draws, an
+        torch.Generator (a CPU one seeded 0 when None); or draws, an
         hmc.Draws replaying given standard normals and uniforms in the
         samplers' order. Returns a dict with "samples" (the params tree,
         (num_samples, num_chains, ...) leaves) and the sampler's
@@ -377,6 +380,44 @@ class GP:
             jitter=self.jitter, method=self.method, steps=steps,
             learning_rate=learning_rate, rank=rank, num_mc=num_mc,
             rng=self._rng(generator, draws))
+
+    def fit_sparse(self, X, y, *, num_inducing=512, steps=500,
+                   learning_rate=0.05, optimize_inducing=True, seed=0):
+        """SGPR fit (Titsias collapsed bound, models/sgpr.py): O(n m^2).
+        Stores the inducing points in self.Z; predict_sparse serves the
+        sparse posterior. Returns the info dict ("loss", "elbo")."""
+        from cugp_tpu_torch.models import sgpr
+
+        X, y = self._data(X, y)
+        init = self.params or kernel_ops.default_init(
+            self.kind, d=X.shape[1], device=self.device)
+        params, Z, info = sgpr.fit(
+            self._params(init), X, y, num_inducing=num_inducing,
+            kind=self.kind, jitter=self.jitter, steps=steps,
+            learning_rate=learning_rate,
+            optimize_inducing=optimize_inducing, seed=seed)
+        self.params, self.X, self.y = params, X, y
+        self.Z = Z
+        return info
+
+    @torch.no_grad()
+    def predict_sparse(self, Xs, *, include_noise=False):
+        """Posterior mean/variance through the fitted inducing points."""
+        from cugp_tpu_torch.models import sgpr
+
+        mu, var = sgpr.posterior(self.params, self.Z, self.X, self.y,
+                                 _as_f32(Xs, self.device), kind=self.kind,
+                                 jitter=self.jitter,
+                                 include_noise=include_noise)
+        return self._out_mean(mu), self._out_var(var)
+
+    def fit_classifier(self, X, y, **kw):
+        """A GPClassifier with this GP's kind, jitter, method and device,
+        fitted to (X, y)."""
+        clf = GPClassifier(kind=self.kind, jitter=self.jitter,
+                           method=self.method, device=self.device)
+        clf.fit(X, y, **kw)
+        return clf
 
     def fit_iterative(self, X, y, *, steps=50, learning_rate=0.05,
                       init=None, generator=None, log_prior=None, **kw):
@@ -462,3 +503,300 @@ class GP:
             include_noise=include_noise, precond=pre, col_batch=col_batch,
             stats=stats)
         return self._out_mean(mu), self._out_var(var)
+
+
+def _restore(path, probe_of):
+    """(tree, extra) of a checkpoint directory written by either package;
+    probe_of(extra) gives the tree's shape."""
+    from cugp_tpu_torch.utils import checkpoint
+
+    meta0 = checkpoint.peek_meta(path)
+    if meta0 is None:
+        raise FileNotFoundError(path)
+    extra = meta0.get("extra", {})
+    tree, _meta = checkpoint.restore(path, probe_of(extra))
+    if tree is None:
+        raise FileNotFoundError(path)
+    return tree, extra
+
+
+@dataclasses.dataclass
+class GPClassifier:
+    """GP classification.
+
+    Two classes route to the binary model: inference="laplace"
+    (models/gpc, logistic likelihood, GPML Alg 3.1/3.2, MacKay's probit
+    predictive) or inference="ep" (models/gpc_ep, probit likelihood,
+    parallel EP, GPML ch. 3.6; its predictive probit integral is exact).
+    Three or more classes route to the multiclass softmax-Laplace model
+    (models/gpc_multiclass, GPML Alg 3.3/3.4; predict_proba returns an
+    (m, C) matrix in classes_ order; EP is binary-only). Labels may be
+    anything NumPy can sort; predict() returns them in their original
+    form via classes_. device: as GP's ("cuda" by default).
+    """
+
+    kind: str = "rbf"
+    jitter: float = 1e-6
+    method: str = "auto"
+    inference: str = "laplace"   # laplace | ep (binary only)
+    device: Any = "cuda"
+    params: Optional[dict] = None
+    X: Optional[Any] = None
+    y: Optional[Any] = None
+    classes_: Optional[Any] = None
+
+    def __post_init__(self):
+        kernel_ops.validate_kind(self.kind)
+        kernel_ops.check_method(self.method)
+        self.device = torch.device(self.device)
+
+    def _data(self, X, y):
+        from cugp_tpu_torch.models import gpc_multiclass
+
+        X = _as_f32(X, self.device)
+        y = np.asarray(y.cpu() if isinstance(y, torch.Tensor) else y)
+        classes = np.unique(y)
+        if classes.shape[0] < 2:
+            raise ValueError(f"need at least 2 classes, got {classes}")
+        self.classes_ = classes
+        if classes.shape[0] == 2:
+            ypm = np.where(y == classes[1], 1.0, -1.0).astype(np.float32)
+            return X, _as_f32(ypm, self.device)
+        return X, gpc_multiclass.one_hot(np.searchsorted(classes, y),
+                                         classes.shape[0], self.device)
+
+    @property
+    def _multiclass(self):
+        return self.classes_ is not None and len(self.classes_) > 2
+
+    def _model(self):
+        from cugp_tpu_torch.models import gpc, gpc_ep, gpc_multiclass
+
+        if self._multiclass:
+            if self.inference == "ep":
+                raise ValueError("inference='ep' is binary-only; "
+                                 "multiclass uses the softmax Laplace")
+            return gpc_multiclass
+        if self.inference == "ep":
+            return gpc_ep
+        if self.inference == "laplace":
+            return gpc
+        raise ValueError(f"unknown inference {self.inference!r}")
+
+    def fit(self, X, y, *, steps=100, learning_rate=0.05, init=None,
+            num_newton=20):
+        """MAP hyperparameters by Adam on the approximate marginal
+        likelihood; returns the info dict ("loss", "lml")."""
+        X, yenc = self._data(X, y)
+        if init is None:
+            init = kernel_ops.default_init(self.kind, d=X.shape[1],
+                                           device=self.device)
+        params, info = self._model().fit(
+            tree_map(lambda v: _as_f32(v, self.device), init), X, yenc,
+            kind=self.kind, jitter=self.jitter, method=self.method,
+            steps=steps, learning_rate=learning_rate, num_newton=num_newton)
+        self.params, self.X, self.y = params, X, yenc
+        return info
+
+    @torch.no_grad()
+    def predict_proba(self, Xs, *, num_newton=20, normals=None):
+        """p(y = classes_[1]) (binary) or the (m, C) class probabilities
+        (multiclass; their Monte Carlo normals are `normals`, a (512, C)
+        tensor, else a CPU generator's seeded 0)."""
+        kw = dict(kind=self.kind, jitter=self.jitter, method=self.method)
+        if self._multiclass:
+            kw.update(num_newton=num_newton, normals=normals)
+        elif self.inference != "ep":
+            kw.update(num_newton=num_newton)
+        p, _, _ = self._model().predict_proba(
+            self.params, self.X, self.y, _as_f32(Xs, self.device), **kw)
+        return p
+
+    def predict(self, Xs):
+        """Labels in the original label set."""
+        proba = self.predict_proba(Xs)
+        if self._multiclass:
+            return self.classes_[torch.argmax(proba, dim=1).cpu().numpy()]
+        return self.classes_[(proba > 0.5).cpu().numpy().astype(np.int64)]
+
+    def save(self, path):
+        """Persist hyperparameters, conditioning data and the label set
+        (utils.checkpoint); the directory loads in either package."""
+        from cugp_tpu_torch.utils import checkpoint
+
+        checkpoint.save(
+            path, {"params": self.params, "X": self.X, "y": self.y,
+                   "classes": np.asarray(self.classes_)},
+            extra_json={"kind": self.kind, "jitter": self.jitter,
+                        "method": self.method, "model": "gpc",
+                        "inference": self.inference,
+                        "param_struct": _tree_struct(self.params)})
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """Restore a classifier saved by either package, its tensors on
+        `device` (the JAX package's XLA routes load as "auto")."""
+        tree, extra = _restore(path, lambda extra: {
+            "params": _probe_from_struct(extra["param_struct"]),
+            "X": np.zeros((1, 1)), "y": np.zeros(1), "classes": np.zeros(1)})
+        method = extra["method"]
+        clf = cls(kind=extra["kind"], jitter=extra["jitter"],
+                  method=method if method in ("auto", "pallas") else "auto",
+                  inference=extra.get("inference", "laplace"), device=device)
+        clf.params = tree_map(lambda v: _as_f32(v, clf.device),
+                              tree["params"])
+        clf.X = _as_f32(tree["X"], clf.device)
+        clf.y = _as_f32(tree["y"], clf.device)
+        clf.classes_ = np.asarray(tree["classes"])
+        return clf
+
+
+@dataclasses.dataclass
+class SVGP:
+    """Stochastic variational GP (models/svgp): minibatch SGD on the
+    uncollapsed inducing-point bound, past both the exact model and SGPR
+    in n, and with non-Gaussian likelihoods.
+
+    likelihood: 'gaussian' (regression) | 'bernoulli' (classification,
+    labels mapped to {-1, +1}) | 'poisson' (counts, log link) |
+    'student_t' (robust regression, learnable nu). device: as GP's
+    ("cuda" by default).
+    """
+
+    kind: str = "rbf"
+    jitter: float = 1e-6
+    likelihood: str = "gaussian"
+    device: Any = "cuda"
+    params: Optional[dict] = None
+    Z: Optional[Any] = None
+    vp: Optional[dict] = None
+
+    def __post_init__(self):
+        from cugp_tpu_torch.models import svgp as svgp_mod
+
+        kernel_ops.validate_kind(self.kind)
+        if self.likelihood not in svgp_mod.LIKELIHOODS:
+            raise ValueError(
+                f"unknown likelihood {self.likelihood!r}; supported: "
+                f"{svgp_mod.LIKELIHOODS}")
+        self.device = torch.device(self.device)
+
+    def _encode(self, y):
+        """y -> {-1,+1} for bernoulli. Reuses the classes recorded at fit
+        time when present, so elbo() on a single-class slice encodes
+        consistently instead of re-inferring labels per call."""
+        if self.likelihood != "bernoulli":
+            return _as_f32(y, self.device), None
+        y = np.asarray(y.cpu() if isinstance(y, torch.Tensor) else y)
+        classes = getattr(self, "_classes", None)
+        if classes is None:
+            classes = np.unique(y)
+            if classes.shape[0] != 2:
+                raise ValueError(f"need exactly 2 classes, got {classes}")
+        elif not np.isin(y, classes).all():
+            raise ValueError(
+                f"labels {np.unique(y)} not within fitted classes {classes}")
+        return _as_f32(np.where(y == classes[1], 1.0, -1.0), self.device), \
+            classes
+
+    def fit(self, X, y, *, num_inducing=256, steps=2000, batch=256,
+            learning_rate=0.01, optimize_inducing=True, init=None, seed=0):
+        """svgp.fit with its defaults (minibatch indices drawn with
+        replacement from a CPU generator seeded `seed`); returns the info
+        dict ("loss", "elbo_batch_final")."""
+        from cugp_tpu_torch.models import svgp as svgp_mod
+
+        X = _as_f32(X, self.device)
+        y, self._classes = self._encode(y)
+        if init is None:
+            init = kernel_ops.default_init(self.kind, d=X.shape[1],
+                                           device=self.device)
+        self.params, self.Z, self.vp, info = svgp_mod.fit(
+            tree_map(lambda v: _as_f32(v, self.device), init), X, y,
+            num_inducing=num_inducing, kind=self.kind, jitter=self.jitter,
+            likelihood=self.likelihood, steps=steps, batch=batch,
+            learning_rate=learning_rate,
+            optimize_inducing=optimize_inducing, seed=seed)
+        return info
+
+    @torch.no_grad()
+    def predict(self, Xs, *, include_noise=False):
+        """Predictive mean/variance (gaussian/student_t), rate and its
+        variance (poisson), or hard labels in the original label set
+        (bernoulli)."""
+        from cugp_tpu_torch.models import svgp as svgp_mod
+
+        Xs = _as_f32(Xs, self.device)
+        if self.likelihood == "bernoulli":
+            pos = (self.predict_proba(Xs) > 0.5).cpu().numpy()
+            classes = getattr(self, "_classes", None)
+            if classes is None:
+                return np.where(pos, 1, -1)
+            return np.where(pos, classes[1], classes[0])
+        if self.likelihood == "poisson":
+            return svgp_mod.predict_rate(self.params, self.Z, self.vp, Xs,
+                                         kind=self.kind, jitter=self.jitter)
+        return svgp_mod.posterior(self.params, self.Z, self.vp, Xs,
+                                  kind=self.kind, jitter=self.jitter,
+                                  include_noise=include_noise,
+                                  likelihood=self.likelihood)
+
+    @torch.no_grad()
+    def predict_proba(self, Xs):
+        from cugp_tpu_torch.models import svgp as svgp_mod
+
+        if self.likelihood != "bernoulli":
+            raise ValueError("predict_proba needs likelihood='bernoulli'")
+        p, _, _ = svgp_mod.predict_proba(self.params, self.Z, self.vp,
+                                         _as_f32(Xs, self.device),
+                                         kind=self.kind, jitter=self.jitter)
+        return p
+
+    @torch.no_grad()
+    def elbo(self, X, y):
+        """Full-batch bound at the fitted state (diagnostic)."""
+        from cugp_tpu_torch.models import svgp as svgp_mod
+
+        y, _ = self._encode(y)
+        return svgp_mod.elbo(self.params, self.Z, self.vp,
+                             _as_f32(X, self.device), y, kind=self.kind,
+                             jitter=self.jitter, likelihood=self.likelihood)
+
+    def save(self, path):
+        """Persist hyperparameters, inducing points and q(v): the whole
+        predictive state (the training data is not needed to predict);
+        the directory loads in either package."""
+        from cugp_tpu_torch.utils import checkpoint
+
+        tree = {"params": self.params, "Z": self.Z, "vp": self.vp}
+        classes = getattr(self, "_classes", None)
+        if classes is not None:
+            tree["classes"] = np.asarray(classes)
+        checkpoint.save(
+            path, tree,
+            extra_json={"kind": self.kind, "jitter": self.jitter,
+                        "likelihood": self.likelihood, "model": "svgp",
+                        "has_classes": classes is not None,
+                        "param_struct": _tree_struct(self.params)})
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """Restore a model saved by either package, on `device`."""
+        def probe_of(extra):
+            probe = {"params": _probe_from_struct(extra["param_struct"]),
+                     "Z": np.zeros((1, 1)),
+                     "vp": {"m": np.zeros(1), "c": np.zeros(1)}}
+            if extra.get("has_classes"):
+                probe["classes"] = np.zeros(1)
+            return probe
+
+        tree, extra = _restore(path, probe_of)
+        model = cls(kind=extra["kind"], jitter=extra["jitter"],
+                    likelihood=extra["likelihood"], device=device)
+        model.params = tree_map(lambda v: _as_f32(v, model.device),
+                                tree["params"])
+        model.Z = _as_f32(tree["Z"], model.device)
+        model.vp = tree_map(lambda v: _as_f32(v, model.device), tree["vp"])
+        if extra.get("has_classes"):
+            model._classes = np.asarray(tree["classes"])
+        return model

@@ -101,11 +101,12 @@ class Draws:
 
 def as_draws(rng, device):
     """rng as Draws: a Draws as it is, a torch.Generator wrapped, None a
-    generator on ``device`` seeded 0 (the JAX package's key(0))."""
+    CPU generator seeded 0 (the JAX package's key(0)) whose draws move to
+    ``device``: the same numbers on every device."""
     if isinstance(rng, Draws):
         return rng
     if rng is None:
-        rng = torch.Generator(device=device).manual_seed(0)
+        rng = torch.Generator().manual_seed(0)
     return Draws(rng)
 
 

@@ -72,12 +72,15 @@ def _requires_grad(params):
 
 
 def rademacher(n, p, device, generator=None):
-    """(n, p) float32 Rademacher probes; a fresh seed-0 generator on device
-    when none is given (the JAX package's default key(0))."""
+    """(n, p) float32 Rademacher probes on device, drawn on the
+    generator's own device; a fresh seed-0 CPU generator when none is
+    given (the JAX package's default key(0)), so the default probes are
+    the same bits on every device."""
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    bits = torch.randint(0, 2, (n, p), generator=generator, device=device)
-    return (2 * bits - 1).to(torch.float32)
+        generator = torch.Generator().manual_seed(0)
+    bits = torch.randint(0, 2, (n, p), generator=generator,
+                         device=generator.device)
+    return (2 * bits - 1).to(device=device, dtype=torch.float32)
 
 
 def make_matvec(params, X, kind="rbf", jitter=1e-6, block=4096,
@@ -226,13 +229,33 @@ def precond_factors(params, X, rank, kind="rbf", jitter=1e-6):
     return Lk, chol_ops.cholesky(G), s2
 
 
+def _sum_rows(x):
+    """torch.sum(x, dim=-2); a batch of chains (B, n, r) one chain at a
+    time, so that each chain's sums add in the order they have when it
+    runs alone (a reduction's order follows its tensor's shape, and CG
+    and Lanczos amplify the difference): a chain's iterates are then the
+    same bits in any batch."""
+    if x.ndim < 3:
+        return torch.sum(x, dim=-2)
+    return torch.stack([torch.sum(c, dim=-2) for c in x])
+
+
+def _norm_rows(x, keepdim=False):
+    """torch.linalg.vector_norm(x, dim=-2), a batch one chain at a time
+    (as _sum_rows)."""
+    if x.ndim < 3:
+        return torch.linalg.vector_norm(x, dim=-2, keepdim=keepdim)
+    return torch.stack([torch.linalg.vector_norm(c, dim=-2, keepdim=keepdim)
+                        for c in x])
+
+
 def precond_apply_from_factors(Lk, Lg, s2):
     """P^-1 apply from precomputed factors, via Woodbury:
     P^-1 r = (r - Lk (s2 I_k + Lk^T Lk)^-1 Lk^T r) / s2; the rank-k solve
     is two triangular solves (the TRSM kernel on CUDA). r is (n, c), or
-    (B, n, c) for a batch of chains sharing the preconditioner: the
-    chains are folded into the columns, (n, B c), so the TRSM runs once
-    at k = B c."""
+    (B, n, c) for a batch of chains sharing the preconditioner, applied
+    one chain at a time: the GEMMs and the TRSM then see a chain's own
+    (n, c) block, as when it runs alone, and give it the same bits."""
 
     def apply_2d(r):
         t = trsm_ops.cho_solve(Lg, Lk.mT @ r)
@@ -241,9 +264,7 @@ def precond_apply_from_factors(Lk, Lg, s2):
     def apply_p(r):
         if r.ndim == 2:
             return apply_2d(r)
-        b, n, c = r.shape
-        out = apply_2d(r.permute(1, 0, 2).reshape(n, b * c))
-        return out.reshape(n, b, c).permute(1, 0, 2)
+        return torch.stack([apply_2d(c) for c in r])
 
     return apply_p
 
@@ -268,12 +289,12 @@ def _cg_apply_m(precond_apply, precond_diag):
 def _cg_step(matvec, apply_m, s):
     """One CG iteration on (n, r) or, for a batch, (B, n, r)."""
     ap = matvec(s.p)
-    denom = torch.sum(s.p * ap, dim=-2)
+    denom = _sum_rows(s.p * ap)
     alpha = (s.rs / torch.where(denom == 0, 1.0, denom)).unsqueeze(-2)
     x = s.x + alpha * s.p
     r = s.r - alpha * ap
     z = apply_m(r)
-    rs_new = torch.sum(r * z, dim=-2)
+    rs_new = _sum_rows(r * z)
     beta = (rs_new / torch.where(s.rs == 0, 1.0, s.rs)).unsqueeze(-2)
     p = z + beta * s.p
     return CGState(x=x, r=r, p=p, rs=rs_new, it=s.it + 1)
@@ -293,7 +314,7 @@ def cg_init(b, precond_apply=None, precond_diag=None, x0=None, matvec=None):
             raise ValueError("cg_init(x0=...) needs the matvec for r0")
         x, r = x0, b - matvec(x0)
     z0 = apply_m(r)
-    return CGState(x=x, r=r, p=z0, rs=torch.sum(r * z0, dim=-2), it=0)
+    return CGState(x=x, r=r, p=z0, rs=_sum_rows(r * z0), it=0)
 
 
 def cg_segment(matvec, state, num_iters, precond_apply=None,
@@ -347,11 +368,11 @@ def _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
     an iteration (whether any chain is still running)."""
     s = cg_init(b, precond_apply, precond_diag, x0=x0, matvec=matvec)
     apply_m = _cg_apply_m(precond_apply, precond_diag)
-    bnorm = torch.clamp(torch.linalg.vector_norm(b, dim=-2), min=1e-30)
+    bnorm = torch.clamp(_norm_rows(b), min=1e-30)
     its = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
 
     def running(s, its):
-        rel = torch.linalg.vector_norm(s.r, dim=-2) / bnorm
+        rel = _norm_rows(s.r) / bnorm
         return (its < max_iters) & torch.any(rel > tol, dim=-1)
 
     run = running(s, its)
@@ -380,16 +401,16 @@ def lanczos_tridiag_batched(matvec, Z, num_steps):
     batch of chains: each step is ONE multi-RHS matvec, so p probes cost
     about one (the BBMM batching). Probes stay independent. Returns
     (alphas (m, p), betas (m-1, p)), or (m, B, p) and (m-1, B, p)."""
-    q = Z / torch.linalg.vector_norm(Z, dim=-2, keepdim=True)
+    q = Z / _norm_rows(Z, keepdim=True)
     q_prev = torch.zeros_like(q)
     beta_prev = torch.zeros(Z.shape[:-2] + Z.shape[-1:], dtype=Z.dtype,
                             device=Z.device)
     alphas, betas = [], []
     for _ in range(num_steps):
         v = matvec(q) - beta_prev.unsqueeze(-2) * q_prev
-        alpha = torch.sum(q * v, dim=-2)
+        alpha = _sum_rows(q * v)
         v = v - alpha.unsqueeze(-2) * q
-        beta = torch.linalg.vector_norm(v, dim=-2)
+        beta = _norm_rows(v)
         q_prev, q = q, v / torch.where(beta == 0, 1.0, beta).unsqueeze(-2)
         beta_prev = beta
         alphas.append(alpha)

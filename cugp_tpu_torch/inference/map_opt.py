@@ -3,10 +3,14 @@
 ``fit`` (dense): the JAX package runs the optimizer as one jitted
 ``lax.scan``; here it is a Python loop. Adam is ``torch.optim.Adam`` on
 leaf tensors (b1=0.9, b2=0.999, eps=1e-8 outside the root: the same
-update as ``optax.adam``); as with ``optax.apply_if_finite``, a step whose
-gradient is not finite is skipped and leaves the optimizer state
-untouched. L-BFGS is ``inference/_lbfgs`` (``optax.lbfgs`` with the same
-defaults) on the flattened leaves. The objective is the negative LML, the
+update as ``optax.adam``), through ``adam_fit``, which also carries
+``optax.apply_if_finite``'s rule (``FiniteGuard``: a step whose gradient
+is not finite is skipped and leaves the optimizer state untouched,
+until ``max_consecutive_errors`` of them in a row) and, for the SVGP
+fit, ``optax.clip_by_global_norm``. The model fits (sgpr, svgp, gpc,
+gpc_ep, gpc_multiclass) and ``vi.fit`` run the same loop. L-BFGS is
+``inference/_lbfgs`` (``optax.lbfgs`` with the same defaults) on the
+flattened leaves. The objective is the negative LML, the
 negative marginalized-basis LML, or the negative LOO pseudo-likelihood,
 minus an optional log prior. ``fit_restarts`` runs ``fit`` from
 perturbed starts and keeps the best. ``fit_iterative`` (matrix-free):
@@ -84,6 +88,71 @@ def _clamp(params):
     return params
 
 
+class FiniteGuard:
+    """``optax.apply_if_finite(inner, max_consecutive_errors)``'s rule
+    around a torch optimizer: a step whose gradient is not finite is
+    skipped, its optimizer state untouched, while the count of such
+    steps in a row is at most max_consecutive_errors; past it the update
+    is applied, non-finite as it is, until a finite step resets the
+    count."""
+
+    def __init__(self, max_consecutive_errors):
+        self.max_consecutive_errors = max_consecutive_errors
+        self.notfinite_count = 0
+
+    def apply(self, grads):
+        """Whether this step's update is applied (one host read)."""
+        finite = bool(torch.stack([torch.isfinite(g).all()
+                                   for g in grads]).all())
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        return finite or self.notfinite_count > self.max_consecutive_errors
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm):
+    """``optax.clip_by_global_norm`` in place: every gradient times
+    max_norm / global_norm when global_norm >= max_norm (no epsilon)."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    for g in grads:
+        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+
+
+def adam_fit(trainables, loss_fn, *, steps, learning_rate,
+             max_consecutive_errors, grad_clip=None, clamp=True):
+    """Adam over a tree of tensors, as the JAX package's scan of
+    ``optax.apply_if_finite(optax.adam(lr), max_consecutive_errors)``
+    (with ``optax.clip_by_global_norm(grad_clip)`` before Adam when
+    grad_clip is given). loss_fn(trainables, step) is the scalar to
+    minimize; after each step the bounded log-hyperparameters are
+    clamped (``_clamp``) unless clamp is False. Returns (the trained
+    tree, detached; the (steps,) losses at each step's pre-update
+    point)."""
+    tr = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                  trainables)
+    leaves = tree_leaves(tr)
+    opt = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999),
+                           eps=1e-8)
+    guard = FiniteGuard(max_consecutive_errors)
+    losses = []
+    for step in range(steps):
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = loss_fn(tr, step)
+            loss.backward()
+        losses.append(loss.detach())
+        for p in leaves:  # a leaf the loss does not reach: zero gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in leaves]
+        if guard.apply(grads):
+            if grad_clip is not None:
+                clip_by_global_norm_(grads, grad_clip)
+            opt.step()
+        if clamp:
+            _clamp(tr)
+    return tree_map(lambda t: t.detach(), tr), torch.stack(losses)
+
+
 def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
         steps=200, optimizer="adam", learning_rate=0.05, basis=None,
         log_prior=None, objective="lml"):
@@ -107,24 +176,10 @@ def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
         return _fit_lbfgs(init_params, loss_fn, steps)
     if optimizer != "adam":
         raise ValueError(f"unknown optimizer: {optimizer}")
-    params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
-                      init_params)
-    leaves = tree_leaves(params)
-    opt = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999),
-                           eps=1e-8)
-    losses = []
-    for _ in range(steps):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params)
-        loss.backward()
-        losses.append(loss.detach())
-        finite = torch.stack([torch.isfinite(p.grad).all() for p in leaves
-                              if p.grad is not None])
-        if bool(finite.all()):  # one host sync per step
-            opt.step()
-        _clamp(params)
-    loss_trace = torch.stack(losses)
-    params = tree_map(lambda t: t.detach(), params)
+    # optax.apply_if_finite(optax.adam(lr), 1000), as the JAX package's
+    params, loss_trace = adam_fit(
+        init_params, lambda p, _step: loss_fn(p), steps=steps,
+        learning_rate=learning_rate, max_consecutive_errors=1000)
     return params, {"loss": loss_trace, "lml": -loss_trace[-1]}
 
 
@@ -308,8 +363,8 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     if adaptive_refresh:
         precond_refresh = 10 ** 9  # cadence disabled; staleness-driven
 
-    if generator is None:
-        generator = torch.Generator(device=X.device).manual_seed(0)
+    if generator is None:  # on the CPU: the same probes on every device
+        generator = torch.Generator().manual_seed(0)
     if probe_mode == "frozen" and probes is None:
         probes = iterative.rademacher(n, num_probes, X.device, generator)
 

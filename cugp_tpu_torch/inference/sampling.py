@@ -24,6 +24,7 @@ recompiles nothing, so there is no cache here.
 
 from __future__ import annotations
 
+import hashlib
 import sys
 
 import numpy as np
@@ -73,7 +74,7 @@ def sample_hyperparams(init_params, X, y, *, kind="rbf", jitter=1e-6,
     """NUTS/HMC posterior over kernel hyperparameters.
 
     rng: a torch.Generator or hmc.Draws (the chains' initial jitter is
-    drawn first, then the run's draws); None: a generator on X's device
+    drawn first, then the run's draws); None: a CPU generator
     seeded 0. Returns dict with "samples": the params tree with
     (num_samples, n_chains, ...) leaves in log-space, plus the sampler's
     diagnostics.
@@ -106,16 +107,19 @@ def _mix64(x):
     return x ^ (x >> 31)
 
 
-def segment_generator(key_data, draws_done, device):
+def segment_generator(key_data, draws_done, device=None):
     """The generator of the segment that starts after draws_done draws:
     seeded from the run's base bits and the draw counter (the counterpart
     of ``jax.random.fold_in(base_key, draws_done)``), so segments
-    compose and a resumed run draws what the uninterrupted one drew."""
+    compose and a resumed run draws what the uninterrupted one drew.
+    It is a CPU generator whatever ``device`` the chains live on (its
+    draws move there), so a checkpoint resumes to the same draws on
+    any device."""
     seed = 0
     for word in np.asarray(key_data, np.uint32).ravel():
         seed = _mix64(seed ^ int(word))
     seed = _mix64(seed ^ _mix64(int(draws_done)))
-    return torch.Generator(device=device).manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
 
 
 def cg_diagnostic(params, precond, X, y, *, kind="rbf", jitter=1e-6,
@@ -130,14 +134,21 @@ def cg_diagnostic(params, precond, X, y, *, kind="rbf", jitter=1e-6,
 
 
 def _probes(n, num_probes, Z, probe_rng, device):
-    """The frozen (n, num_probes) Rademacher probes: Z as given, else
-    drawn from probe_rng, else from a generator seeded 7."""
+    """The frozen (n, num_probes) Rademacher probes on device: Z as
+    given, else drawn from probe_rng, else from a CPU generator seeded 7
+    (the same probes on every device)."""
     if Z is not None:
         return torch.as_tensor(Z, dtype=torch.float32, device=device)
     if probe_rng is None:
-        probe_rng = torch.Generator(device=device).manual_seed(
-            DEFAULT_PROBE_SEED)
+        probe_rng = torch.Generator().manual_seed(DEFAULT_PROBE_SEED)
     return iterative.rademacher(n, num_probes, device, probe_rng)
+
+
+def probe_digest(Z):
+    """A short fingerprint of the probes' bits, saved with an iterative-
+    engine checkpoint: a resume under other probes is detected by it."""
+    a = np.ascontiguousarray(Z.detach().cpu().numpy(), np.float32)
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
 
 
 def make_iterative_logprob(init_params, X, y, *, kind="rbf", jitter=1e-6,
@@ -162,7 +173,7 @@ def make_iterative_logprob(init_params, X, y, *, kind="rbf", jitter=1e-6,
     the posterior (logdet and trace carry an O(1/sqrt(num_probes))
     error) and is exact for it. Z: the probes as a tensor (the tests
     feed the JAX package's); else drawn from probe_rng, a
-    torch.Generator; else from a generator seeded 7 on X's device.
+    torch.Generator; else from a CPU generator seeded 7.
 
     precond: optional (Lk, Lg, s2) factors built at a representative
     point (iterative.precond_factors). They shape CG's convergence,
@@ -224,7 +235,7 @@ def sample_hyperparams_iterative(
     factors ONCE at init_params on the device (precond_where "host"
     raises: ROADMAP item 12) and reuses them for every transition. rng:
     a torch.Generator or hmc.Draws (the chains' initial jitter first,
-    then the run's draws); None: a generator on X's device seeded 0.
+    then the run's draws); None: a CPU generator seeded 0.
     Returns the sample_hyperparams dict plus "samples_flat".
     """
     hmc_lib.check_chain_block(chain_block)
@@ -278,7 +289,7 @@ def sample_hyperparams_checkpointed(
 
     rng: a torch.Generator (or hmc.Draws holding one) for the chains'
     initial jitter, the base bits and the warm-up, drawn in that order;
-    None: a generator on X's device seeded 0. A checkpoint written by
+    None: a CPU generator seeded 0. A checkpoint written by
     the JAX package resumes here: q, logp, grad, eps, inv_mass and the
     samples carry over, and the port's draws follow from its stored
     key_data bits, so they are not the draws JAX would have made. A
@@ -294,6 +305,14 @@ def sample_hyperparams_checkpointed(
     factors are rebuilt there. The factors and that best count are
     checkpointed (leaves pre_lk, pre_lg, pre_s2, cg_best), so resume is
     exact. A checkpoint of one engine refuses to resume with the other.
+    The checkpoint records a fingerprint of its probes
+    (``probe_digest``). A checkpoint taken under other probes (the JAX
+    package's, drawn from its key(7), which the port cannot redraw; or
+    the port's own under another Z) resumes with logp and grad
+    RECOMPUTED at the stored positions under this call's probes, so the
+    state and every later evaluation belong to one frozen-probe target:
+    the draws continue on this call's target, not on the writer's. Pass
+    the writer's probes as Z to continue on its target.
 
     Returns the sample_hyperparams dict (samples, samples_flat,
     accept_rate, eps, inv_mass) plus "resumed" and "draws_done".
@@ -309,8 +328,10 @@ def sample_hyperparams_checkpointed(
         raise ValueError("sample_hyperparams_checkpointed draws its base "
                          "bits from a torch.Generator: pass one as rng")
     track_precond = engine == "iterative" and precond_rank > 0
+    digest = None
     if engine == "iterative":
         Z = _probes(X.shape[0], num_probes, Z, probe_rng, dev)
+        digest = probe_digest(Z)
 
     def build_precond(at_params):
         return _precond_factors(at_params, X, precond_rank, precond_where,
@@ -386,6 +407,11 @@ def sample_hyperparams_checkpointed(
                        t32(tree["pre_s2"]))
             cg_best = float(tree["cg_best"])
             logprob_and_grad, unravel, q0 = make_lp(precond)
+        if (engine == "iterative"
+                and meta["extra"].get("probe_digest") != digest):
+            # taken under other probes: re-evaluate the stored positions
+            # on this call's target
+            state = hmc_lib.HMCState(state.q, *logprob_and_grad(state.q))
     else:
         draws_done = 0
         qs0 = init_chains(q0, draws, num_chains)
@@ -413,9 +439,12 @@ def sample_hyperparams_checkpointed(
             blob.update(pre_lk=precond[0], pre_lg=precond[1],
                         pre_s2=precond[2],
                         cg_best=np.asarray(cg_best, np.float32))
-        checkpoint.save(checkpoint_dir, blob, step=draws_done, extra_json={
-            "sampler": sampler, "kind": kind, "num_chains": num_chains,
-            "num_warmup": num_warmup, "engine": engine})
+        extra = {"sampler": sampler, "kind": kind, "num_chains": num_chains,
+                 "num_warmup": num_warmup, "engine": engine}
+        if digest is not None:
+            extra["probe_digest"] = digest
+        checkpoint.save(checkpoint_dir, blob, step=draws_done,
+                        extra_json=extra)
 
     if not resumed:
         save(state)  # the warm-up survives a kill before the first segment

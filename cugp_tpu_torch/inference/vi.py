@@ -9,11 +9,11 @@ parameterized), trained by maximizing the reparameterized ELBO
 with Adam. The ELBO's num_mc Monte Carlo draws are one batch: each step
 evaluates the LML of all of them in one batched call (one covariance
 launch, one batched Cholesky, batched solves), and autograd carries the
-gradient back to the variational parameters. Adam is
-``torch.optim.Adam`` as in map_opt (optax.adam's update), and, as with
-``optax.apply_if_finite``, a step whose gradient is not finite is
-skipped. The JAX package's scan keys become draws from one hmc.Draws:
-each step's (num_mc, D) standard normals in turn.
+gradient back to the variational parameters. The loop is
+``map_opt.adam_fit``: optax.adam's update under
+``optax.apply_if_finite``'s rule with the JAX package's count (1000).
+The JAX package's scan keys become draws from one hmc.Draws: each
+step's (num_mc, D) standard normals in turn.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ import math
 import torch
 
 from cugp_tpu_torch.inference import hmc as hmc_lib
+from cugp_tpu_torch.inference import map_opt
 from cugp_tpu_torch.models import exact_gp
-from cugp_tpu_torch.utils.params import ravel_pytree, tree_map
+from cugp_tpu_torch.models.svgp import chol_from_flat as _chol_from_flat
+from cugp_tpu_torch.utils.params import ravel_pytree
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -37,15 +39,6 @@ def _entropy_meanfield(log_scale):
 def _entropy_fullrank(chol_flat, dim):
     # chol_flat holds the lower triangle; diagonal stored as log
     return torch.sum(chol_flat[:dim]) + 0.5 * dim * (1.0 + _LOG_2PI)
-
-
-def _chol_from_flat(flat, dim):
-    """Lower-triangular factor: log-diag in flat[:dim], strict rows after
-    (row-major order of the strict lower triangle, as jnp.tril_indices)."""
-    rows, cols = torch.tril_indices(dim, dim, offset=-1, device=flat.device)
-    L = torch.zeros((dim, dim), dtype=flat.dtype, device=flat.device)
-    L = L.index_put((rows, cols), flat[dim:])
-    return L + torch.diag(torch.exp(flat[:dim]))
 
 
 def _sample(vp, eps, rank, dim):
@@ -72,7 +65,7 @@ def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
         steps=2000, learning_rate=0.01, rank="meanfield", num_mc=8,
         rng=None, log_prior=hmc_lib.default_log_prior):
     """Fit q(theta). rng: a torch.Generator or hmc.Draws (None: a
-    generator on X's device seeded 0). Returns dict with the variational
+    CPU generator seeded 0). Returns dict with the variational
     parameters "vp", the "elbo" trace (steps,), "mean" and "scale" (or
     "chol") in param-dict space, "unravel", and a sampler ``draw(rng,
     n)`` for posterior draws (a params tree with leading n)."""
@@ -96,28 +89,21 @@ def fit(init_params, X, y, *, kind="rbf", jitter=1e-6, method="auto",
         ])}
     else:
         raise ValueError(f"unknown rank: {rank}")
-    leaves = [t.requires_grad_(True) for t in vp.values()]
-    opt = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999),
-                           eps=1e-8)
     draws = hmc_lib.as_draws(rng, dev)
-    elbos = []
-    for _ in range(steps):
+
+    def loss_fn(v, _step):
         eps = draws.normal((num_mc, dim), dev)
-        opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = neg_elbo(vp, eps, logprob, rank, dim)
-            loss.backward()
-        elbos.append(-loss.detach())
-        finite = torch.stack([torch.isfinite(p.grad).all() for p in leaves])
-        if bool(finite.all()):  # one host read a step
-            opt.step()
-    vp = tree_map(lambda t: t.detach(), vp)
+        return neg_elbo(v, eps, logprob, rank, dim)
+
+    vp, losses = map_opt.adam_fit(
+        vp, loss_fn, steps=steps, learning_rate=learning_rate,
+        max_consecutive_errors=1000, clamp=False)
 
     def draw(rng=None, n=1):
         eps = hmc_lib.as_draws(rng, dev).normal((n, dim), dev)
         return unravel(_sample(vp, eps, rank, dim))
 
-    out = {"vp": vp, "elbo": torch.stack(elbos), "mean": unravel(vp["mean"]),
+    out = {"vp": vp, "elbo": -losses, "mean": unravel(vp["mean"]),
            "draw": draw, "unravel": unravel}
     if rank == "meanfield":
         out["scale"] = unravel(torch.exp(vp["log_scale"]))

@@ -233,43 +233,58 @@ def test_extend_finished_checkpoint_and_engine_mismatch(tmp_path):
         _run(tmp_path, "a", "iterative", 4)
 
 
-@pytest.mark.parametrize("layout", ["current", "six_leaves"])
+@pytest.mark.parametrize("layout", ["current", "six_leaves", "iterative"])
 def test_jax_written_checkpoint_resumes(tmp_path, layout):
     """A checkpoint in the JAX sampler's layout, written by the JAX
     package's checkpoint.save (its current leaves, or the older six
     without logp/grad), resumes in the port: q, eps, inv_mass and the
     samples carry over, logp/grad are read (or recomputed for six
-    leaves), and the port's next draws follow from the stored key_data."""
+    leaves), and the port's next draws follow from the stored key_data.
+    An iterative-engine checkpoint was taken under the JAX package's
+    probes, which the port cannot redraw: its logp/grad (here those of
+    other probes) are recomputed under the port's default probes, and
+    the draws continue on that target."""
+    iterative_engine = layout == "iterative"
     p, X, y = _ckpt_setup(64)
-    lp, _, _ = sampling.make_flat_logprob(p, X, y)
+    kw = dict(num_probes=4, num_steps=8, block=64)
+    if iterative_engine:
+        foreign, _, _ = sampling.make_iterative_logprob(
+            p, X, y, Z=iterative.rademacher(
+                64, 4, "cpu", torch.Generator().manual_seed(99)), **kw)
+        lp, _, _ = sampling.make_iterative_logprob(p, X, y, **kw)
+    else:
+        lp, _, _ = sampling.make_flat_logprob(p, X, y)
     rng = np.random.default_rng(0)
     q = (np.float32([-0.22, -3.0, 0.0])
          + 0.1 * rng.standard_normal((3, 3))).astype(np.float32)
-    logp, grad = lp(t(q))
+    logp, grad = (foreign if iterative_engine else lp)(t(q))
     blob = {"q": q, "eps": np.float32(0.05),
             "inv_mass": np.float32([0.5, 0.4, 0.3]),
             "key_data": np.asarray(jax.random.key_data(jax.random.key(11))),
             "samples": rng.standard_normal(2 * 3 * 3).astype(np.float32),
             "accept_sum": np.asarray(4.5)}
-    if layout == "current":
+    if layout != "six_leaves":
         blob.update(logp=logp.numpy(), grad=grad.numpy())
     path = os.path.join(tmp_path, "jax")
+    engine = "iterative" if iterative_engine else "dense"
     jckpt.save(path, blob, step=2, extra_json={
         "sampler": "hmc", "kind": "rbf", "num_chains": 3, "num_warmup": 4,
-        "engine": "dense"})
+        "engine": engine})
     out = sampling.sample_hyperparams_checkpointed(
         p, X, y, checkpoint_dir=path, checkpoint_every=2, num_samples=4,
         num_chains=3, num_warmup=4, sampler="hmc", n_leapfrog=3,
-        rng=torch.Generator().manual_seed(1))
+        rng=torch.Generator().manual_seed(1), engine=engine,
+        **(kw if iterative_engine else {}))
     assert out["resumed"] and out["draws_done"] == 4
     np.testing.assert_array_equal(out["samples_flat"][:2].numpy(),
                                   blob["samples"].reshape(2, 3, 3))
     assert float(out["eps"]) == np.float32(0.05)
     np.testing.assert_array_equal(out["inv_mass"].numpy(),
                                   blob["inv_mass"])
-    # the same two draws as a segment from the stored state and key
+    # the same two draws as a segment from the stored positions (their
+    # logp/grad under the port's target) and key
     kernel = hmc.make_hmc_kernel(lp, 3)
-    state = hmc.HMCState(t(q), logp, grad)
+    state = hmc.HMCState(t(q), *lp(t(q)))
     _, qs, _, _ = hmc.sample_segment(
         state, sampling.segment_generator(blob["key_data"], 2, "cpu"),
         kernel, out["eps"], out["inv_mass"], 2)
@@ -306,3 +321,43 @@ def test_iterative_sampler_output_matches_jax():
     with pytest.raises(NotImplementedError, match="chain_block"):
         sampling.sample_hyperparams_iterative(p, t(X), t(y), chain_block=2,
                                               **kw)
+
+
+def test_default_random_streams_are_drawn_on_the_cpu(monkeypatch):
+    """Every generator the port seeds itself is a CPU torch.Generator,
+    whatever device the draws are asked for (torch's CPU and CUDA
+    generators give other numbers for one seed): a segment's generator,
+    the default probes of the samplers and of rademacher, as_draws(None),
+    GP's sampler default, and fit_iterative's. "meta" stands in for a
+    card here: a generator on it cannot even be built, so a default that
+    still followed the device would raise."""
+    from cugp_tpu_torch import GP
+    from cugp_tpu_torch.inference import map_opt
+
+    cuda = torch.device("cuda")
+    assert sampling.segment_generator([1, 2], 3, cuda).device.type == "cpu"
+    assert hmc.as_draws(None, cuda).generator.device.type == "cpu"
+    assert GP(device=cuda)._rng(None, None).generator.device.type == "cpu"
+    meta = torch.device("meta")
+    assert iterative.rademacher(40, 3, meta).device == meta
+    want = 2 * torch.randint(0, 2, (40, 3), generator=torch.Generator(
+    ).manual_seed(0)) - 1
+    assert torch.equal(iterative.rademacher(40, 3, "cpu"), want.float())
+    z = sampling._probes(40, 3, None, None, meta)
+    assert z.device == meta
+    want = iterative.rademacher(40, 3, "cpu", torch.Generator().manual_seed(
+        sampling.DEFAULT_PROBE_SEED))
+    assert torch.equal(sampling._probes(40, 3, None, None, "cpu"), want)
+    # fit_iterative's default generator, seen by the probes it draws
+    seen = []
+    real = iterative.rademacher
+
+    def spy(n, p, device, generator=None):
+        seen.append(generator.device.type)
+        return real(n, p, device, generator)
+
+    monkeypatch.setattr(iterative, "rademacher", spy)
+    p, X, y = _ckpt_setup(32)
+    map_opt.fit_iterative(p, X, y, steps=1, num_probes=2, precond_rank=0,
+                          block=32, probe_mode="frozen")
+    assert seen == ["cpu"]
