@@ -97,14 +97,37 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      gated at n=1024 against the float64 oracles (the port's copies, run
      in worker processes meanwhile); (e) the default random streams
      asked for the card bitwise the CPU's. Each of (a)-(d) is a path of
-     its own for the launch counters (cov, potrf and TRSM, no matvec).
+     its own for the launch counters (cov, potrf and TRSM, no matvec);
+ 10. the LMC multi-output family: (a) ICM, MultiOutputGP(kind="rbf",
+     rank=2) at n=8000, d=4, p=4 (20 Adam steps after a warm-up,
+     predict at 2,000 points with and without the full output
+     covariance); (b) the dense rank-Q MultiOutputGPQ(kinds=("periodic",
+     "rbf")) on the model-zoo data at n=4096, pn=8192 (20 steps); each
+     gated at n=1024 against the float64 oracle (the port's copy, in
+     worker processes meanwhile) at the fitted params; (c) the
+     matrix-free rank-Q model at benchmarks/bench_lmcq.py's
+     configuration (n=32768, d=2, p=2, rbf + matern32, 8 probes, tol
+     1e-4, CG capped at 2,000 iterations where the harness's one TPU
+     capture ran 600): the harness's small-n agreement check enforced on
+     the mean
+     and the variance, log_marginal_likelihood_iterative and
+     predict_iterative (256 points) timed with their CG counts, the
+     mean solve's residual recomputed without the kernel, the dense
+     path at the same n (pn = 65,536) printed beside it, and its joint
+     Cholesky timed and checked; (d) the matvec at (c)'s shapes (rbf and
+     matern32, r = 1, 8, 256) and the (4, 8000, 8000) batched Cholesky,
+     each against its plain version or the library. (a), (b), (c) are
+     the paths lmc_icm, lmc_q_dense, lmc_q_iterative of the launch
+     counters.
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
 Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), one
 L-BFGS step and one loo() at config 2 (phase 6), one HMC transition
 of 256 chains at config 3 (phase 7), and one evaluation of the 8-chain
 matrix-free log density at the last draws (phase 8), and one SGPR step
-and one step of each classifier (phase 9).
+and one step of each classifier (phase 9), one fit step of each dense
+LMC model and one predict_iterative chunk of the matrix-free one (phase
+10).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -2170,6 +2193,56 @@ def phase_iterative_sampling(torch, dev, profile=False, n=32768, chains=8,
     return launches
 
 
+class Gates:
+    """A phase's gates and launch-counted paths: a failed gate prints a
+    FAILED line and is collected, so that the phase reports every failed
+    gate before it fails (finish)."""
+
+    def __init__(self, torch, tag):
+        self.torch, self.tag = torch, tag
+        self.failures, self.paths = [], {}
+
+    def gate(self, ok, what):
+        if not ok:
+            say(self.tag, FAILED=repr(what))
+            self.failures.append(what)
+
+    def synced(self, fn):
+        """(fn(), host seconds around it between two synchronizations)."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def path(self, part, fn, launched, not_launched=()):
+        """fn() as a path: launch counters and peak memory around it; each
+        kernel named in `launched` must have launched, none in
+        `not_launched`. Returns (fn(), seconds, peak bytes)."""
+        cuda = self.torch.cuda
+        cuda.synchronize()
+        cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, wall = self.synced(fn)
+        launches = read_launches()
+        self.paths[part] = launches
+        peak = cuda.max_memory_allocated()
+        say(self.tag, part=part, wall_s=f"{wall:.4f}", peak_bytes=peak,
+            launches=json.dumps(launches, separators=(",", ":")))
+        for name in launched:
+            self.gate(launches[name] > 0,
+                      f"{part}: the {name} kernel was never launched")
+        for name in not_launched:
+            self.gate(launches[name] == 0,
+                      f"{part}: the {name} kernel was launched")
+        return out, wall, peak
+
+    def finish(self, phase):
+        if self.failures:
+            fail(f"{phase}: {len(self.failures)} gate(s) failed: "
+                 f"{self.failures}")
+
+
 # ---- phase 9: the sparse and classification families ----
 
 GPC_GATE_N = 1024  # the JAX CLI's default n for classify
@@ -2334,37 +2407,12 @@ def phase_sparse_classification(torch, dev, profile=False, n_sgpr=131072,
                                        sgpr, svgp)
     from cugp_tpu_torch.ops import kernels
 
-    failures, paths = [], {}
-
-    def gate(ok, what):
-        if not ok:
-            say("sparse_gpc", FAILED=repr(what))
-            failures.append(what)
-
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    gates = Gates(torch, "sparse_gpc")
+    gate, synced = gates.gate, gates.synced
 
     def path(part, fn):
-        """fn() as a path: launch counters and peak memory around it."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        out, wall = synced(fn)
-        launches = read_launches()
-        paths[part] = launches
-        peak = torch.cuda.max_memory_allocated()
-        say("sparse_gpc", part=part, wall_s=f"{wall:.4f}", peak_bytes=peak,
-            launches=json.dumps(launches, separators=(",", ":")))
-        for name in ("cov", "potrf", "trsm"):
-            gate(launches[name] > 0, f"{part}: the {name} kernel was never "
-                 "launched")
-        gate(launches["cov_matvec"] == 0,
-             f"{part}: the matvec kernel was launched")
-        return out, wall, peak
+        return gates.path(part, fn, ("cov", "potrf", "trsm"),
+                          ("cov_matvec",))
 
     def t32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -2608,10 +2656,426 @@ def phase_sparse_classification(torch, dev, profile=False, n_sgpr=131072,
     for k, v in same.items():
         gate(v, f"the default {k} drawn for the card differ from the CPU's")
     say("sparse_gpc", phase_s=f"{time.perf_counter() - t_phase:.3f}")
-    if failures:
-        fail(f"sparse and classification phase: {len(failures)} gate(s) "
-             f"failed: {failures}")
-    return paths
+    gates.finish("sparse and classification phase")
+    return gates.paths
+
+
+# ---- phase 10: the LMC multi-output family ----
+
+LMC_GATE_N = 1024  # bench_lmcq.py's check_n; the n of every float64 gate
+LMCQ_KINDS = ("rbf", "matern32")  # bench_lmcq.py's latents
+# CG's cap in phase 10(c). bench_lmcq.py's one TPU capture ran 600: there
+# the mean solve stops at a relative residual of 5.8e-2 (tools/lmcq_cg.py
+# on an H100), far from its tol of 1e-4, which it reaches at ~1,600
+# iterations (no preconditioner); a variance chunk needs ~900.
+LMCQ_MAX_ITERS = 2000
+
+
+def _icm_data(n, seed=0):
+    """Phase 10(a)'s data: X ~ U(-2, 2)^4 (config 2's size); four outputs
+    mixing two smooth latent functions, f1 = sin(1.3 x0) cos(0.7 x1) and
+    f2 = tanh(x2) + 0.3 x3, through the weights W below (correlated and
+    anti-correlated pairs), plus N(0, 0.05^2) noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, (n, 4))
+    F = np.stack([np.sin(1.3 * X[:, 0]) * np.cos(0.7 * X[:, 1]),
+                  np.tanh(X[:, 2]) + 0.3 * X[:, 3]], axis=1)
+    W = np.array([[1.0, 0.2], [0.8, -0.5], [-0.6, 0.9], [0.3, 1.0]])
+    Y = F @ W.T + 0.05 * rng.standard_normal((n, 4))
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def _lmcq_zoo_data(n, seed=0):
+    """tests/test_lmc.py's model-zoo data (_toy_q) at n rows: two outputs
+    mixing a period-1 latent sin(2 pi x) and a smooth latent tanh(x) with
+    weights A = [[1, -0.8], [0.3, 0.4]], X sorted in U(-3, 1), plus
+    N(0, 0.05^2) noise."""
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(-3.0, 1.0, size=(n, 1)), axis=0)
+    A = np.array([[1.0, -0.8], [0.3, 0.4]])
+    F = np.stack([np.sin(2 * np.pi * X[:, 0]), np.tanh(X[:, 0])], axis=1)
+    Y = F @ A + 0.05 * rng.standard_normal((n, 2))
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def _bench_lmcq_data(n, d, p, seed=0):
+    """benchmarks/bench_lmcq.py's make_data (copied: the harness imports
+    jax): smooth correlated p-output targets on X ~ U(-3, 3)^d."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3.0, 3.0, size=(n, d)).astype(np.float32)
+    r = np.linalg.norm(X, axis=1)
+    base = np.sin(1.7 * r) + 0.3 * np.cos(3.1 * X[:, 0])
+    cols = [base + 0.2 * np.sin(2.3 * X[:, min(a, d - 1)] + a)
+            for a in range(p)]
+    Y = np.stack(cols, axis=1) + 0.1 * rng.standard_normal((n, p))
+    return X, Y.astype(np.float32)
+
+
+def _lmc_oracle(model, p_np, X, Y, Xs, kinds=None):
+    """The float64 oracle of a phase-10 gate (the port's copy), run in a
+    worker process: (LML, mean, full output covariance) for "icm",
+    (LML, mean, variance) for "lmcq"."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cugp_tpu_torch.oracle import lmc_np
+
+    X, Y, Xs = (np.asarray(a, np.float64) for a in (X, Y, Xs))
+    if model == "icm":
+        return (lmc_np.log_marginal_likelihood(p_np, X, Y),
+                *lmc_np.posterior(p_np, X, Y, Xs))
+    return (lmc_np.log_marginal_likelihood_q(p_np, X, Y, kinds),
+            *lmc_np.posterior_q(p_np, X, Y, Xs, kinds))
+
+
+def _lmcq_plain_matvec(torch, params, X, kinds, v, jitter=1e-6):
+    """The joint operator's product without the kernel: cov_matvec_plain
+    per (non-periodic base) latent, with the mixing and the diagonal."""
+    from cugp_tpu_torch.ops import cov_matvec_cuda as cm
+    from cugp_tpu_torch.ops import kernels
+
+    A = params["lmc_a"]
+    Q, p = A.shape
+    n = X.shape[0]
+    V = v.reshape(p, n, -1)
+    diag_add = (torch.exp(params["log_noise_var"])
+                + jitter * torch.max(torch.sum(A ** 2, dim=0)))
+    out = diag_add * V
+    for a, fp, kind in zip(A, params["latents"], kinds):
+        xs = X / torch.exp(fp["log_lengthscale"])
+        extra = kernels.extra_scalar(fp, kind)
+        scal = torch.stack([torch.ones_like(extra), torch.zeros_like(extra),
+                            extra])
+        u = cm.cov_matvec_plain(xs, torch.einsum("a,anr->nr", a, V), scal,
+                                kind, n)
+        out = out + a[:, None, None] * u
+    return out.reshape(p * n, -1)
+
+
+def phase10_kernel_shapes(torch, dev, gate, X, params, n_batch=(4, 8000)):
+    """The kernels at the shapes phase 10 is the first to reach, each
+    against its plain version (or the library) and timed beside its
+    bound: the matvec at (c)'s n and d on the rbf and matern32 latents at
+    r = 1 (mean solve), 8 (SLQ probes) and 256 (a variance chunk: p = 2
+    outputs x 128 columns), and the (4, 8000, 8000) batched Cholesky of
+    (a)'s rotated factors. (The 65,536-row joint Cholesky is timed in
+    (c) on (c)'s own joint covariance.)"""
+    from cugp_tpu_torch.ops import chol_cuda
+    from cugp_tpu_torch.ops import cholesky as chol_ops
+    from cugp_tpu_torch.ops import cov_matvec_cuda as cm
+
+    n, d = X.shape
+    rng = np.random.default_rng(10)
+    for fp, kind in zip(params["latents"], LMCQ_KINDS):
+        xs = (X / torch.exp(fp["log_lengthscale"])).contiguous()
+        scal = torch.tensor([1.0, float(np.exp(np.float32(-60.0))), 1.0],
+                            dtype=torch.float32, device=dev)
+        for r in (1, 8, 256):
+            v = torch.as_tensor(rng.standard_normal((n, r)),
+                                dtype=torch.float32, device=dev)
+            got = cm.cov_matvec(xs, v, scal, kind, n)
+            want = cm.cov_matvec_plain(xs, v, scal, kind, n)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            gate(err <= 1e-4 * scale, f"cov_matvec {kind} n={n} r={r}: max "
+                 f"abs err {err:.3e} over 1e-4 max|plain| {scale:.3e}")
+            del got, want
+            ms = cuda_ms(lambda: cm.cov_matvec(xs, v, scal, kind, n),
+                         iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: cm.cov_matvec_plain(xs, v, scal, kind,
+                                                           n), iters=2,
+                               warmup=1)
+            b_ms, b_by = _matvec_bound(n, d, r)
+            say("lmc", kernel="cov_matvec", shape=f"n={n} d={d} r={r} "
+                f"{kind}", route=cm.route(r), kernel_ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", library_ms="none",
+                bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+                rel_err=f"{err / scale:.3e}")
+    B, nb = n_batch
+    A = _spd_batch(torch, B, nb, dev, 11)
+    Lb = chol_ops.cholesky(A)
+    rec = float(((Lb @ Lb.mT - A).abs().amax((1, 2))
+                 / A.abs().amax((1, 2))).max())
+    err = float((Lb - torch.linalg.cholesky(A)).abs().max())
+    gate(rec <= 1e-5, f"cholesky ({B}, {nb}, {nb}): recon relerr {rec:.3e} "
+         "(bar 1e-5)")
+    ms = cuda_ms(lambda: chol_ops.cholesky(A), iters=3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.linalg.cholesky(A), iters=3, warmup=1)
+    b_ms, b_by = bound(4 * B * 2 * nb ** 2, B * nb ** 3 / 3)
+    say("lmc", kernel="potrf", shape=f"cholesky B={B} n={nb} (base blocks: "
+        f"route {chol_cuda.route(B, dev)})", kernel_ms=f"{ms:.4f}",
+        plain_ms="none", library_ms=f"{lib_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+        bound_by=b_by, recon_relerr=f"{rec:.3e}",
+        L_err_vs_library=f"{err:.3e}")
+    del A, Lb
+    torch.cuda.empty_cache()
+
+
+def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
+              n_pred=2000, n_q=4096, q_steps=20, n_big=32768, m_big=256,
+              gate_n=LMC_GATE_N):
+    """The LMC multi-output family at the sizes users run: (a) ICM,
+    MultiOutputGP(kind="rbf", rank=2) fit (Adam) and predict at config
+    2's size with p = 4 correlated outputs; (b) the dense rank-Q
+    MultiOutputGPQ(kinds=("periodic", "rbf")) fit on the model-zoo data
+    at pn = 8192; each gated at n = 1024 against the float64 oracle (the
+    port's copy, in worker processes meanwhile) at the fitted params; (c)
+    the matrix-free rank-Q model at benchmarks/bench_lmcq.py's
+    configuration (n = 32768, d = 2, p = 2, rbf + matern32): the
+    harness's small-n agreement check, enforced on the mean and the
+    variance, then log_marginal_likelihood_iterative and
+    predict_iterative timed, the mean solve's residual recomputed without
+    the kernel, and the dense rank-Q path at the same n (pn = 65,536)
+    beside it, its joint Cholesky timed and checked; (d) the kernels at
+    the shapes this phase reaches first. Each of (a)-(c) is a path of its
+    own for the launch counters. Returns {path: launches}."""
+    import multiprocessing
+
+    import cugp_tpu_torch
+    from cugp_tpu_torch.models import lmc
+    from cugp_tpu_torch.ops import cholesky as chol_ops
+    from cugp_tpu_torch.utils.params import params_to_numpy
+
+    gates = Gates(torch, "lmc")
+    gate, synced, path = gates.gate, gates.synced, gates.path
+
+    def peak_of(fn):
+        torch.cuda.reset_peak_memory_stats()
+        out, wall = synced(fn)
+        return out, wall, torch.cuda.max_memory_allocated()
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def maxdiff(a, b):
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+
+    t_phase = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        # (a) ICM at config 2's size, p = 4 outputs
+        X, Y = _icm_data(n_icm, seed=0)
+        Xs = np.random.default_rng(3).uniform(-2.0, 2.0,
+                                              (n_pred, 4)).astype(np.float32)
+        cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2, device=dev).fit(
+            X, Y, steps=1)                                    # warm-up
+        icm = cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2, device=dev)
+        info, t_fit, peak = path("lmc_icm", lambda: (
+            icm.fit(X, Y, steps=icm_steps, learning_rate=0.05),
+            icm.predict(Xs))[0], ("cov", "potrf", "trsm"), ("cov_matvec",))
+        (mu, var), t_pred = synced(lambda: icm.predict(Xs))
+        (mu_f, cov_f), t_pred_full = synced(
+            lambda: icm.predict(Xs, full_output_cov=True))
+        loss = info["loss"].cpu().numpy()
+        corr = icm.output_correlation().cpu().numpy()
+        p_np = params_to_numpy(icm.params)
+        Xg, Yg, Xsg = X[:gate_n], Y[:gate_n], Xs[:200]
+        icm64 = pool.apply_async(_lmc_oracle, ("icm", p_np, Xg, Yg, Xsg))
+        say("lmc", part="icm", n=n_icm, d=4, p=4, rank=2, steps=icm_steps,
+            s_per_step=f"{t_fit / icm_steps:.4f}",
+            predict_s=f"{t_pred:.4f}", predict_full_cov_s=
+            f"{t_pred_full:.4f}", predict_points=n_pred, peak_bytes=peak,
+            lml_first=f"{-loss[0]:.4f}", lml_last=f"{-loss[-1]:.4f}",
+            output_correlation=json.dumps(np.round(corr, 4).tolist()))
+        gate(np.isfinite(loss).all() and loss[-1] < loss[0],
+             "icm: a non-finite loss, or the LML did not rise over the fit")
+        gate(tuple(mu.shape) == tuple(var.shape) == (n_pred, 4)
+             and tuple(cov_f.shape) == (n_pred, 4, 4)
+             and bool(torch.isfinite(cov_f).all())
+             and bool(torch.isfinite(mu).all()),
+             "icm: predict shapes or finiteness")
+        gate(maxdiff(torch.diagonal(cov_f, dim1=1, dim2=2).cpu(),
+                     var.cpu()) <= 1e-5,
+             "icm: the full output covariance's diagonal is not the "
+             "diagonal predict's variance (1e-5)")
+        if profile:
+            profile_device(torch, "profile_lmc_icm_step", lambda: (
+                cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2,
+                                             device=dev).fit(X, Y, steps=1)))
+        with torch.no_grad():
+            lml_g = float(lmc.log_marginal_likelihood_lmc(
+                icm.params, t32(Xg), t32(Yg)))
+            mu_g, cov_g = lmc.posterior_lmc(icm.params, t32(Xg), t32(Yg),
+                                            t32(Xsg), full_output_cov=True)
+        del icm, mu, var, mu_f, cov_f
+        torch.cuda.empty_cache()
+
+        # (b) dense rank-Q on the model-zoo data, pn = 8192
+        kinds_b = ("periodic", "rbf")
+        Xq, Yq = _lmcq_zoo_data(n_q, seed=0)
+
+        def init_b():
+            return lmc.init_lmcq_params(d=1, p=2, kinds=kinds_b,
+                                        lengthscale=0.8, noise_var=0.05,
+                                        seed=0, device=dev)
+
+        cugp_tpu_torch.MultiOutputGPQ(kinds=kinds_b, device=dev).fit(
+            Xq, Yq, steps=1, init=init_b())                   # warm-up
+        mq = cugp_tpu_torch.MultiOutputGPQ(kinds=kinds_b, device=dev)
+        info, t_fit, peak = path("lmc_q_dense", lambda: mq.fit(
+            Xq, Yq, steps=q_steps, learning_rate=0.05, init=init_b()),
+            ("cov", "potrf", "trsm"), ("cov_matvec",))
+        loss = info["loss"].cpu().numpy()
+        step = max(1, n_q // gate_n)
+        Xqg, Yqg = Xq[::step][:gate_n], Yq[::step][:gate_n]
+        Xsq = np.linspace(-3.0, 3.0, 200, dtype=np.float32)[:, None]
+        q64 = pool.apply_async(_lmc_oracle, (
+            "lmcq", params_to_numpy(mq.params), Xqg, Yqg, Xsq, kinds_b))
+        say("lmc", part="lmcq_dense", n=n_q, p=2, kinds=",".join(kinds_b),
+            joint_dim=2 * n_q, steps=q_steps,
+            s_per_step=f"{t_fit / q_steps:.4f}", peak_bytes=peak,
+            lml_first=f"{-loss[0]:.4f}", lml_last=f"{-loss[-1]:.4f}",
+            lmc_a=json.dumps(np.round(mq.params["lmc_a"].cpu().numpy(),
+                                      4).tolist()))
+        gate(np.isfinite(loss).all() and loss[-1] < loss[0],
+             "lmcq dense: a non-finite loss, or the LML did not rise")
+        if profile:
+            profile_device(torch, "profile_lmc_q_dense_step", lambda: (
+                cugp_tpu_torch.MultiOutputGPQ(kinds=kinds_b, device=dev).fit(
+                    Xq, Yq, steps=1, init=init_b())))
+        with torch.no_grad():
+            lml_qg = float(lmc.log_marginal_likelihood_lmcq(
+                mq.params, t32(Xqg), t32(Yqg), kinds_b))
+            mu_qg, var_qg = lmc.posterior_lmcq(mq.params, t32(Xqg),
+                                               t32(Yqg), t32(Xsq), kinds_b)
+        del mq
+        torch.cuda.empty_cache()
+
+        # (c) the matrix-free rank-Q model at bench_lmcq.py's configuration
+        init_c = lmc.init_lmcq_params(d=2, p=2, kinds=LMCQ_KINDS,
+                                      lengthscale=1.2, noise_var=0.05,
+                                      seed=0, device=dev)
+        Xc, Yc = _bench_lmcq_data(gate_n, 2, 2, seed=1)
+        small = cugp_tpu_torch.MultiOutputGPQ(kinds=LMCQ_KINDS, device=dev)
+        small.condition(Xc, Yc, params=init_c)
+        Xsc = Xc[:128] + 0.05
+        mu_d, var_d = small.predict(Xsc)
+        (mu_i, var_i), t_small = synced(lambda: small.predict_iterative(
+            Xsc, tol=1e-7))
+        check_mu, check_var = maxdiff(mu_d.cpu(), mu_i.cpu()), maxdiff(
+            var_d.cpu(), var_i.cpu())
+        say("lmc", part="lmcq_iterative", case=f"check_n={gate_n} tol=1e-7 "
+            "against the dense path", check_mean_maxdiff=f"{check_mu:.3e}",
+            check_var_maxdiff=f"{check_var:.3e}", seconds=f"{t_small:.4f}")
+        gate(check_mu < 1e-3 and check_var < 1e-3,
+             "lmcq iterative: the small-n agreement check is off the dense "
+             "path by 1e-3 or more (mean or variance)")
+        del small
+
+        X, Y = _bench_lmcq_data(n_big, 2, 2, seed=0)
+        Xs = X[:m_big] + 0.05
+        big = cugp_tpu_torch.MultiOutputGPQ(kinds=LMCQ_KINDS, device=dev)
+        big.condition(X, Y, params=init_c)
+        tol, stats, times = 1e-4, {}, {}
+
+        def iterative():
+            lml_i, times["lml"] = synced(
+                lambda: float(big.log_marginal_likelihood_iterative(
+                    tol=tol, max_iters=LMCQ_MAX_ITERS, num_probes=8,
+                    num_steps=32)))
+            out, times["predict"] = synced(lambda: big.predict_iterative(
+                Xs, tol=tol, max_iters=LMCQ_MAX_ITERS, col_batch=128,
+                stats=stats))
+            return lml_i, out
+
+        (lml_i, (mu_i, var_i)), _, peak_i = path(
+            "lmc_q_iterative", iterative, ("cov_matvec", "cov"))
+        Xt, Yt = t32(X), t32(Y)
+        with torch.no_grad():
+            res = Yt.mT.reshape(-1) - _lmcq_plain_matvec(
+                torch, big.params, Xt, LMCQ_KINDS, stats["alpha"])[:, 0]
+            rel_res = float(torch.linalg.vector_norm(res)
+                            / torch.linalg.vector_norm(Yt))
+        say("lmc", part="lmcq_iterative", n=n_big, d=2, p=2,
+            kinds=",".join(LMCQ_KINDS), joint_dim=2 * n_big, m=m_big,
+            tol=tol, max_iters=LMCQ_MAX_ITERS, probes=8, lanczos_steps=32,
+            col_batch=128, lml=f"{lml_i:.4f}",
+            lml_per_point=f"{lml_i / (2 * n_big):.4f}",
+            lml_s=f"{times['lml']:.4f}",
+            predict_s=f"{times['predict']:.4f}", peak_bytes=peak_i,
+            mean_cg_iters=stats["mean_iters"],
+            var_cg_iters=",".join(map(str, stats["var_iters"])),
+            mean_rel_residual=f"{rel_res:.3e}")
+        gate(tuple(mu_i.shape) == tuple(var_i.shape) == (m_big, 2)
+             and bool(torch.isfinite(mu_i).all())
+             and bool(torch.isfinite(var_i).all()) and np.isfinite(lml_i),
+             "lmcq iterative: wrong shape or non-finite")
+        gate(rel_res <= 10 * tol, f"lmcq iterative: mean-solve residual "
+             f"{rel_res:.3e} over 10 tol = {10 * tol:.1e}")
+        if profile:
+            profile_device(torch, "profile_lmc_q_cg_chunk",
+                           lambda: big.predict_iterative(
+                               Xs[:128], tol=tol,
+                               max_iters=LMCQ_MAX_ITERS, col_batch=128))
+
+        # the dense rank-Q path at the same n, pn = 65,536 (ungated)
+        (lml_d, t_lml_d, peak_l) = peak_of(
+            lambda: float(big.log_marginal_likelihood()))
+        (mu_dd, var_dd), t_post_d, peak_p = peak_of(lambda: big.predict(Xs))
+        say("lmc", part="lmcq_dense_at_n", n=n_big, joint_dim=2 * n_big,
+            lml=f"{lml_d:.4f}", lml_s=f"{t_lml_d:.4f}",
+            lml_peak_bytes=peak_l, predict_s=f"{t_post_d:.4f}",
+            predict_peak_bytes=peak_p,
+            iterative_minus_dense_lml=f"{lml_i - lml_d:.4f}",
+            per_point=f"{(lml_i - lml_d) / (2 * n_big):.3e}",
+            mean_maxdiff=f"{maxdiff(mu_i.cpu(), mu_dd.cpu()):.3e}",
+            var_maxdiff=f"{maxdiff(var_i.cpu(), var_dd.cpu()):.3e}")
+        del mu_dd, var_dd
+        torch.cuda.empty_cache()
+
+        # the 65,536-row joint Cholesky on (c)'s joint covariance
+        with torch.no_grad():
+            S = lmc.lmcq_covariance(big.params, Xt, Xt, LMCQ_KINDS)
+            S.diagonal().add_(lmc._lmcq_diag_add(big.params, 1e-6))
+            ms = cuda_ms(lambda: chol_ops.cholesky(S), iters=2, warmup=1)
+            L = chol_ops.cholesky(S)
+            finite = bool(torch.isfinite(L).all())
+            nb = 4096
+            relerr = float((L[:nb] @ L[:nb].T - S[:nb, :nb]).abs().max()
+                           / S[:nb, :nb].abs().max())
+        pn = 2 * n_big
+        b_ms, b_by = bound(4 * 2 * pn ** 2, pn ** 3 / 3)
+        say("lmc", kernel="potrf", shape=f"joint cholesky n={pn}",
+            kernel_ms=f"{ms:.4f}", plain_ms="none", library_ms="none",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, finite=finite,
+            recon_relerr_first_4096_rows=f"{relerr:.3e}")
+        gate(finite and relerr < 2e-4, f"joint cholesky n={pn}: finite="
+             f"{finite}, recon relerr {relerr:.3e} (gate 2e-4, phase 4's)")
+        del S, L
+        torch.cuda.empty_cache()
+
+        # (d) the matvec and batched Cholesky at this phase's shapes
+        phase10_kernel_shapes(torch, dev, gate, Xt, big.params)
+        del big, Xt, Yt
+
+        # (a)'s and (b)'s float64 gates, computed meanwhile
+        lml64, mu64, cov64 = icm64.get()
+        errs = {"lml_rel": abs(lml_g - lml64) / abs(lml64),
+                "mean": maxdiff(mu_g.cpu(), mu64),
+                "output_cov": maxdiff(cov_g.cpu(), cov64)}
+        say("lmc", part="icm gate", n=gate_n, lml=f"{lml_g:.4f}",
+            lml64=f"{lml64:.4f}",
+            **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()})
+        gate(errs["lml_rel"] <= 1e-4, "icm: LML off float64 by more than "
+             "1e-4 relative")
+        gate(errs["mean"] <= 1e-3 and errs["output_cov"] <= 1e-3,
+             "icm: mean or full output covariance off float64 by more than "
+             "1e-3")
+        lml64, mu64, var64 = q64.get()
+        errs = {"lml_rel": abs(lml_qg - lml64) / abs(lml64),
+                "mean": maxdiff(mu_qg.cpu(), mu64),
+                "var": maxdiff(var_qg.cpu(), var64)}
+        say("lmc", part="lmcq dense gate", n=gate_n, lml=f"{lml_qg:.4f}",
+            lml64=f"{lml64:.4f}",
+            **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()})
+        gate(errs["lml_rel"] <= 1e-3 and errs["mean"] <= 1e-3
+             and errs["var"] <= 1e-3, "lmcq dense: LML (1e-3 relative), "
+             "mean or variance (1e-3) off float64")
+    finally:
+        pool.terminate()
+        pool.join()
+    say("lmc", phase_s=f"{time.perf_counter() - t_phase:.3f}")
+    gates.finish("LMC phase")
+    return gates.paths
 
 
 def profile_device(torch, tag, fn):
@@ -2664,7 +3128,7 @@ def main(argv):
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
     phases = {int(v) for v in
-              opts.get("--phases", "0,1,2,3,4,5,6,7,8,9").split(",")}
+              opts.get("--phases", "0,1,2,3,4,5,6,7,8,9,10").split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
@@ -2695,7 +3159,9 @@ def main(argv):
     if 9 in phases:
         paths.update(phase_sparse_classification(
             torch, dev, profile="--profile" in opts))
-    if phases != set(range(10)):
+    if 10 in phases:
+        paths.update(phase_lmc(torch, dev, profile="--profile" in opts))
+    if phases != set(range(11)):
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

@@ -1,7 +1,9 @@
 """User-facing API facades, as ``cugp_tpu/api.py``'s ``GP`` (dense and
 matrix-free parts, the sparse SGPR fit, hyperparameter HMC/NUTS and VI,
 persistence), ``GPClassifier`` (Laplace, EP and multiclass GP
-classification) and ``SVGP``.
+classification), ``SVGP``, and the LMC multi-output facades
+``MultiOutputGP`` (ICM) and ``MultiOutputGPQ`` (rank-Q, dense and
+matrix-free).
 
 Each facade runs where its ``device`` says, "cuda" unless the caller
 asks for the CPU: data, hyperparameters and every kernel launch live
@@ -800,3 +802,263 @@ class SVGP:
         if extra.get("has_classes"):
             model._classes = np.asarray(tree["classes"])
         return model
+
+
+@dataclasses.dataclass
+class MultiOutputGP:
+    """Correlated multi-output GP regression (LMC / intrinsic
+    coregionalization, models/lmc.py).
+
+    Joint prior covariance B (x) K with learnable low-rank-plus-diagonal
+    B = A A^T + diag(softplus(raw_d)) (rank: A's columns); solved exactly
+    at O(p n^3) via the eigendecomposition rotation (one (p, n, n)
+    batched Cholesky, no pn x pn matrix). For UNCORRELATED outputs
+    sharing one kernel use GP with exact_gp.*_multi instead. device: as
+    GP's ("cuda" by default).
+    """
+
+    kind: str = "rbf"
+    jitter: float = 1e-6
+    method: str = "auto"
+    rank: int = 1
+    device: Any = "cuda"
+    params: Optional[dict] = None
+    X: Optional[Any] = None
+    Y: Optional[Any] = None
+
+    def __post_init__(self):
+        kernel_ops.validate_kind(self.kind)
+        kernel_ops.check_method(self.method)
+        self.device = torch.device(self.device)
+
+    def fit(self, X, Y, *, steps=200, learning_rate=0.05, init=None,
+            seed=0):
+        """MAP fit of kernel + coregionalization params (lmc.fit); init
+        defaults to lmc.init_lmc_params(q=rank, seed=seed), whose mixing
+        factors come from a CPU generator seeded `seed`. Returns the info
+        dict ("loss", "lml")."""
+        from cugp_tpu_torch.models import lmc
+
+        X, Y = _multi_data(X, Y, self.device)
+        if init is None:
+            init = lmc.init_lmc_params(d=X.shape[1], p=Y.shape[1],
+                                       q=self.rank, seed=seed,
+                                       device=self.device)
+        params, info = lmc.fit(
+            tree_map(lambda v: _as_f32(v, self.device), init), X, Y,
+            kind=self.kind, jitter=self.jitter, method=self.method,
+            steps=steps, learning_rate=learning_rate)
+        self.params, self.X, self.Y = params, X, Y
+        return info
+
+    def _fitted(self):
+        if self.params is None:
+            raise RuntimeError("call fit() first")
+
+    @torch.no_grad()
+    def predict(self, Xs, *, include_noise=False, full_output_cov=False):
+        """Mean (m, p) and per-point output variance (m, p), or the full
+        (m, p, p) cross-output covariance with full_output_cov=True."""
+        from cugp_tpu_torch.models import lmc
+
+        self._fitted()
+        return lmc.posterior_lmc(
+            self.params, self.X, self.Y, _as_f32(Xs, self.device),
+            kind=self.kind, jitter=self.jitter, method=self.method,
+            include_noise=include_noise, full_output_cov=full_output_cov)
+
+    @torch.no_grad()
+    def log_marginal_likelihood(self):
+        from cugp_tpu_torch.models import lmc
+
+        self._fitted()
+        return lmc.log_marginal_likelihood_lmc(
+            self.params, self.X, self.Y, kind=self.kind,
+            jitter=self.jitter, method=self.method)
+
+    @torch.no_grad()
+    def output_correlation(self):
+        """Fitted B normalized to a correlation matrix (p, p)."""
+        from cugp_tpu_torch.models import lmc
+
+        B = lmc.coregionalization(self.params)
+        s = torch.sqrt(torch.diagonal(B))
+        return B / (s[:, None] * s[None, :])
+
+    def save(self, path):
+        """Persist hyperparameters and conditioning data; the directory
+        loads in either package."""
+        from cugp_tpu_torch.utils import checkpoint
+
+        checkpoint.save(
+            path, {"params": self.params, "X": self.X, "Y": self.Y},
+            extra_json={"kind": self.kind, "jitter": self.jitter,
+                        "method": self.method, "rank": self.rank,
+                        "model": "lmc",
+                        "param_struct": _tree_struct(self.params)})
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """Restore a model saved by either package, on `device` (the JAX
+        package's XLA routes load as "auto")."""
+        tree, extra = _restore(path, _multi_probe)
+        method = extra["method"]
+        model = cls(kind=extra["kind"], jitter=extra["jitter"],
+                    method=method if method in ("auto", "pallas") else "auto",
+                    rank=extra.get("rank", 1), device=device)
+        _multi_restore(model, tree)
+        return model
+
+
+@dataclasses.dataclass
+class MultiOutputGPQ:
+    """Rank-Q LMC multi-output GP with DISTINCT latent kernels
+    (models/lmc.py's lmcq family): joint prior sum_q (a_q a_q^T) (x) K_q,
+    e.g. one periodic + one RBF latent process mixing into p outputs.
+
+    Unlike MultiOutputGP (ICM: one shared kernel, eigendecomposition
+    rotation), the rank-Q model has no common rotation: exact inference
+    factors the dense pn x pn covariance, or, past the dense ceiling,
+    runs matrix-free on the sum-of-Kronecker operator
+    (predict_iterative / log_marginal_likelihood_iterative: CG + SLQ,
+    Sigma never formed; one matvec-kernel launch per latent a product).
+    device: as GP's ("cuda" by default).
+    """
+
+    kinds: tuple = ("rbf", "rbf")
+    jitter: float = 1e-6
+    device: Any = "cuda"
+    params: Optional[dict] = None
+    X: Optional[Any] = None
+    Y: Optional[Any] = None
+
+    def __post_init__(self):
+        self.kinds = tuple(self.kinds)
+        for kind in self.kinds:
+            kernel_ops.validate_kind(kind)
+        self.device = torch.device(self.device)
+
+    def _init(self, seed):
+        from cugp_tpu_torch.models import lmc
+
+        return lmc.init_lmcq_params(d=self.X.shape[1], p=self.Y.shape[1],
+                                    kinds=self.kinds, seed=seed,
+                                    device=self.device)
+
+    def _params(self, params):
+        return tree_map(lambda v: _as_f32(v, self.device), params)
+
+    def fit(self, X, Y, *, steps=200, learning_rate=0.05, init=None,
+            seed=0):
+        """MAP fit on the dense LML (lmc.fit_lmcq); init defaults to
+        lmc.init_lmcq_params(seed=seed). Returns the info dict ("loss",
+        "lml")."""
+        from cugp_tpu_torch.models import lmc
+
+        self.X, self.Y = _multi_data(X, Y, self.device)
+        init = self._init(seed) if init is None else self._params(init)
+        self.params, info = lmc.fit_lmcq(
+            init, self.X, self.Y, kinds=self.kinds, jitter=self.jitter,
+            steps=steps, learning_rate=learning_rate)
+        return info
+
+    def condition(self, X, Y, params=None, seed=0):
+        """Attach data (and optionally params) without fitting."""
+        self.X, self.Y = _multi_data(X, Y, self.device)
+        self.params = (self._params(params) if params is not None
+                       else self._init(seed))
+        return self
+
+    def _fitted(self):
+        if self.params is None:
+            raise RuntimeError("call fit() or condition() first")
+
+    @torch.no_grad()
+    def predict(self, Xs, *, include_noise=False):
+        """Dense posterior: mean (m, p) and per-output variance (m, p)."""
+        from cugp_tpu_torch.models import lmc
+
+        self._fitted()
+        return lmc.posterior_lmcq(
+            self.params, self.X, self.Y, _as_f32(Xs, self.device),
+            self.kinds, jitter=self.jitter, include_noise=include_noise)
+
+    def predict_iterative(self, Xs, *, include_noise=False, block=4096,
+                          tol=1e-6, max_iters=1000, col_batch=256,
+                          segment_iters="auto", stats=None):
+        """Matrix-free posterior on the joint operator: the path past the
+        dense pn ceiling, everything on this model's device. segment_iters:
+        "auto" or 0 (the segmented schedule is not ported). stats: as
+        lmc.posterior_lmcq_iterative's."""
+        from cugp_tpu_torch.models import lmc
+
+        self._fitted()
+        return lmc.posterior_lmcq_iterative(
+            self.params, self.X, self.Y, _as_f32(Xs, self.device),
+            self.kinds, jitter=self.jitter, block=block, tol=tol,
+            max_iters=max_iters, include_noise=include_noise,
+            col_batch=col_batch, segment_iters=segment_iters, stats=stats)
+
+    @torch.no_grad()
+    def log_marginal_likelihood(self):
+        from cugp_tpu_torch.models import lmc
+
+        self._fitted()
+        return lmc.log_marginal_likelihood_lmcq(
+            self.params, self.X, self.Y, self.kinds, jitter=self.jitter)
+
+    @torch.no_grad()
+    def log_marginal_likelihood_iterative(self, *, block=4096,
+                                          num_probes=16, num_steps=32,
+                                          tol=1e-5, max_iters=1000,
+                                          probes=None, generator=None):
+        """Matrix-free LML (CG + SLQ on the joint operator). probes: the
+        (pn, num_probes) Rademacher probes, drawn from `generator` (a CPU
+        generator seeded 0 when None) when not given."""
+        from cugp_tpu_torch.models import lmc
+
+        self._fitted()
+        return lmc.log_marginal_likelihood_lmcq_iterative(
+            self.params, self.X, self.Y, self.kinds,
+            Z=None if probes is None else _as_f32(probes, self.device),
+            generator=generator, jitter=self.jitter, block=block, tol=tol,
+            max_iters=max_iters, num_probes=num_probes, num_steps=num_steps)
+
+    def save(self, path):
+        """Persist the params tree and conditioning data; the directory
+        loads in either package."""
+        from cugp_tpu_torch.utils import checkpoint
+
+        checkpoint.save(
+            path, {"params": self.params, "X": self.X, "Y": self.Y},
+            extra_json={"kinds": list(self.kinds), "jitter": self.jitter,
+                        "model": "lmcq",
+                        "param_struct": _tree_struct(self.params)})
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """Restore a model saved by either package, on `device`."""
+        tree, extra = _restore(path, _multi_probe)
+        model = cls(kinds=tuple(extra["kinds"]), jitter=extra["jitter"],
+                    device=device)
+        _multi_restore(model, tree)
+        return model
+
+
+def _multi_data(X, Y, device):
+    X, Y = _as_f32(X, device), _as_f32(Y, device)
+    if Y.ndim != 2:
+        raise ValueError(f"Y must be (n, p); got {tuple(Y.shape)}")
+    return X, Y
+
+
+def _multi_probe(extra):
+    return {"params": _probe_from_struct(extra["param_struct"]),
+            "X": np.zeros((1, 1)), "Y": np.zeros((1, 1))}
+
+
+def _multi_restore(model, tree):
+    model.params = tree_map(lambda v: _as_f32(v, model.device),
+                            tree["params"])
+    model.X = _as_f32(tree["X"], model.device)
+    model.Y = _as_f32(tree["Y"], model.device)

@@ -157,6 +157,14 @@ def test_port_never_imports_jax():
             "cugp_tpu_torch.inference.nuts\n"
             "import cugp_tpu_torch.inference.sampling, "
             "cugp_tpu_torch.inference.vi\n"
+            "import cugp_tpu_torch.models.sgpr, cugp_tpu_torch.models.svgp\n"
+            "import cugp_tpu_torch.models.gpc, cugp_tpu_torch.models.gpc_ep\n"
+            "import cugp_tpu_torch.models.gpc_multiclass\n"
+            "import cugp_tpu_torch.oracle.gpc_np, "
+            "cugp_tpu_torch.oracle.gpc_ep_np\n"
+            "import cugp_tpu_torch.oracle.gpc_multiclass_np\n"
+            "import cugp_tpu_torch.models.lmc, cugp_tpu_torch.oracle.lmc_np\n"
+            "from cugp_tpu_torch import MultiOutputGP, MultiOutputGPQ\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'cugp_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
