@@ -2698,6 +2698,15 @@ def _lmcq_zoo_data(n, seed=0):
     return X.astype(np.float32), Y.astype(np.float32)
 
 
+def _lmcq_gate_inputs(Xq, Yq, gate_n):
+    """Phase 10(b)'s gate cell: gate_n rows spread evenly over (Xq, Yq)
+    and 200 test points on [-3, 3] (past the training range's right end,
+    where the periodic latent carries its pattern forward)."""
+    step = max(1, Xq.shape[0] // gate_n)
+    Xs = np.linspace(-3.0, 3.0, 200, dtype=np.float32)[:, None]
+    return Xq[::step][:gate_n], Yq[::step][:gate_n], Xs
+
+
 def _bench_lmcq_data(n, d, p, seed=0):
     """benchmarks/bench_lmcq.py's make_data (copied: the harness imports
     jax): smooth correlated p-output targets on X ~ U(-3, 3)^d."""
@@ -2724,6 +2733,15 @@ def _lmc_oracle(model, p_np, X, Y, Xs, kinds=None):
                 *lmc_np.posterior(p_np, X, Y, Xs))
     return (lmc_np.log_marginal_likelihood_q(p_np, X, Y, kinds),
             *lmc_np.posterior_q(p_np, X, Y, Xs, kinds))
+
+
+def _tree_tolist(tree):
+    """A params tree of numpy arrays as nested lists (for JSON)."""
+    if isinstance(tree, dict):
+        return {k: _tree_tolist(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_tolist(v) for v in tree]
+    return np.asarray(tree).tolist()
 
 
 def _lmcq_plain_matvec(torch, params, X, kinds, v, jitter=1e-6):
@@ -2830,8 +2848,10 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
     import multiprocessing
 
     import cugp_tpu_torch
+    from cugp_tpu_torch.inference import iterative
     from cugp_tpu_torch.models import lmc
     from cugp_tpu_torch.ops import cholesky as chol_ops
+    from cugp_tpu_torch.ops import trsm as trsm_ops
     from cugp_tpu_torch.utils.params import params_to_numpy
 
     gates = Gates(torch, "lmc")
@@ -2849,6 +2869,12 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
         return float(np.abs(np.asarray(a, np.float64)
                             - np.asarray(b, np.float64)).max())
 
+    def profiled(tag, fn):
+        """fn() timed, then again under the profiler: its idle share
+        against the timed wall."""
+        _, wall = synced(fn)
+        profile_device(torch, tag, fn, timed_s=wall)
+
     t_phase = time.perf_counter()
     pool = multiprocessing.get_context("spawn").Pool(2)
     try:
@@ -2859,9 +2885,17 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
         cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2, device=dev).fit(
             X, Y, steps=1)                                    # warm-up
         icm = cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2, device=dev)
-        info, t_fit, peak = path("lmc_icm", lambda: (
-            icm.fit(X, Y, steps=icm_steps, learning_rate=0.05),
-            icm.predict(Xs))[0], ("cov", "potrf", "trsm"), ("cov_matvec",))
+        fit_s = {}
+
+        def icm_path():
+            info, fit_s["icm"] = synced(lambda: icm.fit(
+                X, Y, steps=icm_steps, learning_rate=0.05))
+            icm.predict(Xs)
+            return info
+
+        info, _, peak = path("lmc_icm", icm_path, ("cov", "potrf", "trsm"),
+                             ("cov_matvec",))
+        t_fit = fit_s["icm"]
         (mu, var), t_pred = synced(lambda: icm.predict(Xs))
         (mu_f, cov_f), t_pred_full = synced(
             lambda: icm.predict(Xs, full_output_cov=True))
@@ -2888,9 +2922,12 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
              "icm: the full output covariance's diagonal is not the "
              "diagonal predict's variance (1e-5)")
         if profile:
-            profile_device(torch, "profile_lmc_icm_step", lambda: (
-                cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2,
-                                             device=dev).fit(X, Y, steps=1)))
+            # one step from the fitted params, data already on the card
+            prof = cugp_tpu_torch.MultiOutputGP(kind="rbf", rank=2,
+                                                device=dev)
+            profiled("profile_lmc_icm_step", lambda: prof.fit(
+                icm.X, icm.Y, steps=1, init=icm.params))
+            del prof
         with torch.no_grad():
             lml_g = float(lmc.log_marginal_likelihood_lmc(
                 icm.params, t32(Xg), t32(Yg)))
@@ -2915,23 +2952,24 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
             Xq, Yq, steps=q_steps, learning_rate=0.05, init=init_b()),
             ("cov", "potrf", "trsm"), ("cov_matvec",))
         loss = info["loss"].cpu().numpy()
-        step = max(1, n_q // gate_n)
-        Xqg, Yqg = Xq[::step][:gate_n], Yq[::step][:gate_n]
-        Xsq = np.linspace(-3.0, 3.0, 200, dtype=np.float32)[:, None]
+        Xqg, Yqg, Xsq = _lmcq_gate_inputs(Xq, Yq, gate_n)
+        pq_np = params_to_numpy(mq.params)
         q64 = pool.apply_async(_lmc_oracle, (
-            "lmcq", params_to_numpy(mq.params), Xqg, Yqg, Xsq, kinds_b))
+            "lmcq", pq_np, Xqg, Yqg, Xsq, kinds_b))
+        # the fitted params in full (float32 values, exact in JSON), for
+        # tools/fp32_accuracy.py --cases=lmcq_dense --lmcq_params=...
         say("lmc", part="lmcq_dense", n=n_q, p=2, kinds=",".join(kinds_b),
             joint_dim=2 * n_q, steps=q_steps,
             s_per_step=f"{t_fit / q_steps:.4f}", peak_bytes=peak,
             lml_first=f"{-loss[0]:.4f}", lml_last=f"{-loss[-1]:.4f}",
-            lmc_a=json.dumps(np.round(mq.params["lmc_a"].cpu().numpy(),
-                                      4).tolist()))
+            params=json.dumps(_tree_tolist(pq_np), separators=(",", ":")))
         gate(np.isfinite(loss).all() and loss[-1] < loss[0],
              "lmcq dense: a non-finite loss, or the LML did not rise")
         if profile:
-            profile_device(torch, "profile_lmc_q_dense_step", lambda: (
-                cugp_tpu_torch.MultiOutputGPQ(kinds=kinds_b, device=dev).fit(
-                    Xq, Yq, steps=1, init=init_b())))
+            prof = cugp_tpu_torch.MultiOutputGPQ(kinds=kinds_b, device=dev)
+            profiled("profile_lmc_q_dense_step", lambda: prof.fit(
+                mq.X, mq.Y, steps=1, init=mq.params))
+            del prof
         with torch.no_grad():
             lml_qg = float(lmc.log_marginal_likelihood_lmcq(
                 mq.params, t32(Xqg), t32(Yqg), kinds_b))
@@ -2967,7 +3005,7 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
         big.condition(X, Y, params=init_c)
         tol, stats, times = 1e-4, {}, {}
 
-        def iterative():
+        def run_iterative():
             lml_i, times["lml"] = synced(
                 lambda: float(big.log_marginal_likelihood_iterative(
                     tol=tol, max_iters=LMCQ_MAX_ITERS, num_probes=8,
@@ -2978,7 +3016,7 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
             return lml_i, out
 
         (lml_i, (mu_i, var_i)), _, peak_i = path(
-            "lmc_q_iterative", iterative, ("cov_matvec", "cov"))
+            "lmc_q_iterative", run_iterative, ("cov_matvec", "cov"))
         Xt, Yt = t32(X), t32(Y)
         with torch.no_grad():
             res = Yt.mT.reshape(-1) - _lmcq_plain_matvec(
@@ -3001,11 +3039,31 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
              "lmcq iterative: wrong shape or non-finite")
         gate(rel_res <= 10 * tol, f"lmcq iterative: mean-solve residual "
              f"{rel_res:.3e} over 10 tol = {10 * tol:.1e}")
+        # the SLQ logdet a probe at a time, on the LML's own probes (the
+        # default stream), and the CG quadratic term: what the LML's gap
+        # to the dense one below is made of
+        yv = Yt.mT.reshape(-1)
+        mv = lmc.make_lmcq_matvec(big.params, Xt, LMCQ_KINDS)
+        with torch.no_grad():
+            Z = iterative.rademacher(2 * n_big, 8, dev)
+            ld_probe = np.array([float(iterative.slq_logdet(
+                mv, 2 * n_big, Z=Z[:, j:j + 1], num_steps=32))
+                for j in range(8)])
+            quad_i = float(torch.dot(yv, stats["alpha"]))
+        ld_i, ld_se = ld_probe.mean(), ld_probe.std(ddof=1) / np.sqrt(8)
+        say("lmc", part="lmcq_iterative", slq_logdet=f"{ld_i:.4f}",
+            slq_logdet_mc_se=f"{ld_se:.4f}",
+            slq_logdet_per_probe=",".join(f"{v:.2f}" for v in ld_probe),
+            quad=f"{quad_i:.4f}")
         if profile:
-            profile_device(torch, "profile_lmc_q_cg_chunk",
-                           lambda: big.predict_iterative(
-                               Xs[:128], tol=tol,
-                               max_iters=LMCQ_MAX_ITERS, col_batch=128))
+            profiled("profile_lmc_q_mean_solve", lambda: iterative.cg_solve(
+                mv, yv, tol=tol, max_iters=LMCQ_MAX_ITERS))
+            C = lmc.lmcq_covariance(big.params, Xt, t32(Xs[:128]),
+                                    LMCQ_KINDS)
+            profiled("profile_lmc_q_var_chunk", lambda: iterative.cg_solve(
+                mv, C, tol=tol, max_iters=LMCQ_MAX_ITERS))
+            del C
+        del mv
 
         # the dense rank-Q path at the same n, pn = 65,536 (ungated)
         (lml_d, t_lml_d, peak_l) = peak_of(
@@ -3032,6 +3090,13 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
             nb = 4096
             relerr = float((L[:nb] @ L[:nb].T - S[:nb, :nb]).abs().max()
                            / S[:nb, :nb].abs().max())
+            ld_d = 2.0 * float(torch.sum(torch.log(torch.diagonal(L))))
+            quad_d = float(torch.dot(yv, trsm_ops.cho_solve(L, yv)))
+        say("lmc", part="lmcq_dense_at_n", logdet=f"{ld_d:.4f}",
+            quad=f"{quad_d:.4f}",
+            slq_minus_dense_logdet=f"{ld_i - ld_d:.4f}",
+            in_mc_se=f"{(ld_i - ld_d) / ld_se:.2f}",
+            cg_minus_dense_quad=f"{quad_i - quad_d:.4f}")
         pn = 2 * n_big
         b_ms, b_by = bound(4 * 2 * pn ** 2, pn ** 3 / 3)
         say("lmc", kernel="potrf", shape=f"joint cholesky n={pn}",
@@ -3078,9 +3143,11 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
     return gates.paths
 
 
-def profile_device(torch, tag, fn):
+def profile_device(torch, tag, fn, timed_s=None):
     """fn() under torch.profiler: device time by kernel, and the host
-    wall around it (its idle share is 1 - busy / wall)."""
+    wall around it (its idle share is 1 - busy / wall). timed_s: the wall
+    of the same work timed without the profiler (whose tracing slows the
+    host), printed with the idle share against it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3095,8 +3162,11 @@ def profile_device(torch, tag, fn):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
+    timed = {} if timed_s is None else dict(
+        timed_s=f"{timed_s:.4f}",
+        idle_share_vs_timed=f"{1.0 - busy / timed_s:.4f}")
     say(tag, wall_s=f"{wall:.4f}", device_busy_s=f"{busy:.4f}",
-        idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows))
+        idle_share=f"{1.0 - busy / wall:.4f}", kernels=len(rows), **timed)
     ours = ("cov_matvec", "cov_tile", "cov_prep", "potrf_kernel",
             "trsm_trtri", "trsm_narrow", "trsm_wide")
     for i, e in enumerate(rows):

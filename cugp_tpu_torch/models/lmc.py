@@ -304,16 +304,15 @@ def fit_lmcq(init_params, X, Y, *, kinds, jitter=1e-6, steps=200,
 # iterative tier. Layout matches _lmcq_chol.
 
 
-def make_lmcq_matvec(params, X, kinds, jitter=1e-6, block=4096,
-                     method="auto"):
+def make_lmcq_matvec(params, X, kinds, jitter=1e-6, block=4096):
     """v (pn,) or (pn, r) -> Sigma v without forming Sigma.
 
     Each latent contributes one kernel matvec
     (``iterative.make_matvec`` on a copy of its unit-amplitude params
-    with the -60 log-noise, never a leaf the fit's clamp sees). method:
-    "auto" takes the fused route (the matvec kernel) for a base family
-    and the blocked route for a composite; "blocked" is the JAX
-    package's route (its "xla"). The fused route has no gradient.
+    with the -60 log-noise, never a leaf the fit's clamp sees): the fused
+    route (the matvec kernel) for a base family, the blocked route (the
+    JAX package's "xla") for a composite. The fused route has no
+    gradient.
     """
     A = params["lmc_a"]                                    # (Q, p)
     Q, p = A.shape
@@ -325,7 +324,7 @@ def make_lmcq_matvec(params, X, kinds, jitter=1e-6, block=4096,
         lp["log_noise_var"] = torch.full_like(lp["log_signal_var"],
                                               _LATENT_LOG_NOISE)
         mvs.append(iterative.make_matvec(lp, X, kind=kind, jitter=0.0,
-                                         block=block, method=method))
+                                         block=block))
 
     def matvec(v):
         vec = v.ndim == 1
@@ -359,19 +358,6 @@ def log_marginal_likelihood_lmcq_iterative(
             - 0.5 * n * p * LOG2PI)
 
 
-def lmcq_cross_columns(params, X, Xs, kinds):
-    """The joint cross covariance's columns at Xs, (pn, p m), output-major
-    on both sides: C[(a,i),(b,s)] = sum_q a_q[a] a_q[b] K_q(X, Xs)[i, s],
-    from Q (n, m) latent tiles; also returns the tiles (Q, n, m)."""
-    A = params["lmc_a"]
-    p = A.shape[1]
-    Kq = torch.stack([
-        kernel_ops.cross_covariance(_latent_unit_params(fp), X, Xs, kind)
-        for fp, kind in zip(params["latents"], kinds)])
-    C = torch.einsum("qa,qb,qnm->anbm", A, A, Kq)
-    return C.reshape(p * X.shape[0], p * Xs.shape[0]), Kq
-
-
 @torch.no_grad()
 def posterior_lmcq_iterative(params, X, Y, Xs, kinds, jitter=1e-6,
                              block=4096, tol=1e-6, max_iters=1000,
@@ -382,10 +368,11 @@ def posterior_lmcq_iterative(params, X, Y, Xs, kinds, jitter=1e-6,
     device.
 
     Test points stream in `col_batch` chunks; per chunk the p*mc cross
-    columns (lmcq_cross_columns) are solved with batched CG on the joint
-    operator. segment_iters: only 0 (or "auto") — the segmented schedule
-    is not ported. stats: optional dict that receives the mean solve's
-    "alpha" and the CG counts "mean_iters" / "var_iters".
+    columns (lmcq_covariance) give the mean C^T alpha and are solved with
+    batched CG on the joint operator for the variance. segment_iters:
+    only 0 (or "auto") — the segmented schedule is not ported. stats:
+    optional dict that receives the mean solve's "alpha" and the CG
+    counts "mean_iters" / "var_iters".
     """
     map_opt.check_iterative_schedule(segment_iters)
     A = params["lmc_a"]
@@ -393,15 +380,12 @@ def posterior_lmcq_iterative(params, X, Y, Xs, kinds, jitter=1e-6,
     mv = make_lmcq_matvec(params, X, kinds, jitter=jitter, block=block)
     alpha, it_mean = iterative.cg_solve(mv, Y.mT.reshape(-1), tol=tol,
                                         max_iters=max_iters)
-    wq = A @ alpha.reshape(p, n)                           # (Q, n)
     mus, quads, it_var = [], [], []
     for j0 in range(0, Xs.shape[0], col_batch):
-        C, Kq_c = lmcq_cross_columns(params, X, Xs[j0:j0 + col_batch],
-                                     kinds)
-        mc = Kq_c.shape[2]
-        # mean: mu[s, b] = sum_q a_qb (K_q(X, Xs)^T (a_q . alpha))[s]
-        tq = torch.einsum("qnm,qn->qm", Kq_c, wq)
-        mus.append(tq.mT @ A)
+        Xs_c = Xs[j0:j0 + col_batch]
+        mc = Xs_c.shape[0]
+        C = lmcq_covariance(params, X, Xs_c, kinds)        # (pn, p mc)
+        mus.append((C.mT @ alpha).reshape(p, mc).mT)
         W, it = iterative.cg_solve(mv, C, tol=tol, max_iters=max_iters)
         quads.append(torch.sum(C * W, dim=0).reshape(p, mc).mT)
         it_var.append(it)

@@ -11,6 +11,8 @@ and blocked matvec on the CPU, where the port runs its own recursions
 over the kernels' plain versions. Tolerances are stated at each check.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 import cugp_tpu
+from cugp_tpu.inference import iterative as jiterative
 from cugp_tpu.models import exact_gp as jexact
 from cugp_tpu.models import lmc as jlmc
 from cugp_tpu.oracle import lmc_np as jlmc_np
@@ -290,14 +293,17 @@ def test_lmcq_fit_matches_jax(lmcq):
 # ---- rank-Q, matrix-free ----
 
 
-@pytest.mark.parametrize("method", ["fused", "blocked"])
-def test_lmcq_matvec_matches_dense_operator(method):
-    """make_lmcq_matvec on either route == the dense joint operator in
-    float64 (tests/test_lmc.py's cell and bars: 2e-4 rel and abs)."""
+@pytest.mark.parametrize("kinds", [
+    pytest.param(("rbf", "rq"), id="fused"),
+    pytest.param(("rbf", "rq+periodic"), id="blocked")])
+def test_lmcq_matvec_matches_dense_operator(kinds):
+    """make_lmcq_matvec == the dense joint operator in float64
+    (tests/test_lmc.py's cell and bars: 2e-4 rel and abs): base latents
+    only (every latent on the fused route), and with a composite latent
+    (which takes the blocked route)."""
     rng = np.random.default_rng(4)
     n, d, p = 96, 2, 2
     X = rng.uniform(-2, 2, (n, d)).astype(np.float32)
-    kinds = ("rbf", "rq")
     p_np = jax.tree.map(np.asarray, jlmc.init_lmcq_params(
         d, p, kinds, noise_var=0.07, seed=2))
     S = np.asarray(jlmc.lmcq_covariance(jax.tree.map(jnp.asarray, p_np),
@@ -308,7 +314,7 @@ def test_lmcq_matvec_matches_dense_operator(method):
           ) * np.eye(p * n)
     v = rng.standard_normal((p * n, 3)).astype(np.float32)
     mv = lmc.make_lmcq_matvec(params_from_numpy(p_np, "cpu"), t(X), kinds,
-                              block=64, method=method)
+                              block=64)
     close(mv(t(v)), S @ v, rtol=2e-4, atol=2e-4)
     close(mv(t(v[:, 0])), S @ v[:, 0], rtol=2e-4, atol=2e-4)
 
@@ -395,6 +401,65 @@ def test_lmcq_posterior_iterative_matches_jax(lmcq_iter):
         close(vt, want_v, atol=1e-3)
     assert stats["alpha"].shape == (Y.size,)
     assert len(stats["var_iters"]) == 3 and stats["mean_iters"] > 0
+
+
+@pytest.fixture(scope="module")
+def lmcq_bench():
+    """benchmarks/bench_lmcq.py's configuration at 256 rows
+    (make_data(d=2, p=2, seed=0), rbf + matern32 latents at
+    lengthscale 1.2, noise 0.05; the port's seed-0 init), the JAX
+    package's CG count on its mean solve at tol 1e-4, and the float64
+    joint operator."""
+    from benchmarks.bench_lmcq import make_data
+
+    kinds = ("rbf", "matern32")
+    X, Y = make_data(256, 2, 2, seed=0)
+    pt = lmc.init_lmcq_params(d=2, p=2, kinds=kinds, lengthscale=1.2,
+                              noise_var=0.05, seed=0)
+    p_np = params_to_numpy(pt)
+    yv = Y.T.reshape(-1)
+    mv = jlmc.make_lmcq_matvec(jax.tree.map(jnp.asarray, p_np),
+                               jnp.asarray(X), kinds)
+    aj, itj = jax.jit(lambda b: jiterative.cg_solve(
+        mv, b, tol=1e-4, max_iters=3000))(jnp.asarray(yv))
+    S = lmc_np._joint_cov_q(p_np, np.float64(X), np.float64(X), kinds)
+    S[np.diag_indices_from(S)] += (
+        np.exp(np.float64(p_np["log_noise_var"]))
+        + 1e-6 * np.max(np.sum(np.float64(p_np["lmc_a"]) ** 2, axis=0)))
+    return dict(kinds=kinds, X=X, yv=yv, pt=pt, S=S, jax_iters=int(itj),
+                jax_alpha=np.asarray(aj))
+
+
+def _true_rel_residual(S, x, b):
+    return float(np.linalg.norm(b - S @ np.float64(x)) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("route", ["fused", "blocked"])
+def test_lmcq_cg_iterations_match_jax(lmcq_bench, route, monkeypatch):
+    """CG's count on the rank-Q joint operator is the operator's, not the
+    port's: at bench_lmcq's configuration (256 rows, tol 1e-4, no
+    preconditioner) the port's mean solve takes JAX's count of iterations
+    within 10% (fp32 CG's recursive residual crosses tol within a few
+    iterations of the other's), on either matvec route (the blocked one
+    forced here; on the CPU both run the same tiles), and both solutions'
+    relative residuals, recomputed on the float64 operator, are within
+    10 tol (phase 5's certificate). Prints both; tools/lmcq_cg.py --jax
+    compares them at larger n."""
+    c = lmcq_bench
+    if route == "blocked":
+        monkeypatch.setattr(lmc.iterative, "make_matvec", functools.partial(
+            lmc.iterative.make_matvec, method="blocked"))
+    mv = lmc.make_lmcq_matvec(c["pt"], t(c["X"]), c["kinds"])
+    with torch.no_grad():
+        x, it = lmc.iterative.cg_solve(mv, t(c["yv"]), tol=1e-4,
+                                       max_iters=3000)
+    res_t = _true_rel_residual(c["S"], x.numpy(), c["yv"])
+    res_j = _true_rel_residual(c["S"], c["jax_alpha"], c["yv"])
+    print(f"[lmcq_cg] n={len(c['X'])} tol=1e-4 {route}: port {it} iterations, "
+          f"residual {res_t:.3e}; jax {c['jax_iters']} iterations, "
+          f"residual {res_j:.3e}")
+    assert abs(it - c["jax_iters"]) <= 0.1 * c["jax_iters"]
+    assert res_t <= 1e-3 and res_j <= 1e-3
 
 
 def test_segmented_schedule_is_refused_and_names_item_12(lmcq):

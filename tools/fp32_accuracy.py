@@ -1,8 +1,10 @@
-"""fp32 accuracy of the sparse and classification models against float64,
-the port beside the JAX package where it is importable.
+"""fp32 accuracy of the sparse, classification and rank-Q LMC models
+against float64, the port beside the JAX package where it is importable.
 
     python tools/fp32_accuracy.py            # every case, on the CPU
     python tools/fp32_accuracy.py --n=16384 --cases=sgpr,warm_start
+    python tools/fp32_accuracy.py --cases=lmcq_dense --lmcq_n=4096 \
+        --gate_n=1024 --lmcq_params='<the params JSON of phase 10(b)>'
 
 Cases (one line each):
   sgpr        SGPR at benchmarks/bench_sgpr.py's data and initial
@@ -18,7 +20,16 @@ Cases (one line each):
   multiclass  gpc_multiclass at n=1024 (phase 9's gate problem): the
               latent mean and covariance against the float64 oracle;
   sgpr_grad   SGPR's gradient at tests/test_sgpr.py's cell against a
-              float64 autograd of the same formulas.
+              float64 autograd of the same formulas;
+  lmcq_dense  the dense rank-Q LMC's LML, mean and variance on
+              chip_smoke.py phase 10(b)'s gate cell (the model-zoo data
+              at --lmcq_n rows, default 512; --gate_n of them, default
+              256; 200 test points on [-3, 3]) against the float64
+              oracle, at --lmcq_params (a params JSON, as phase 10(b)
+              prints for its fit on the card) or else at the params of
+              --lmcq_steps (default 3) Adam steps of the port's fit from
+              phase 10(b)'s init (the CPU rehearsal's); with the joint
+              covariance's condition number.
 The JAX columns need the JAX package (and jax) beside the port; without
 them they read "n/a". Numbers are CPU numbers: the card rounds its GEMMs
 in another order.
@@ -26,6 +37,7 @@ in another order.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import sys
@@ -36,13 +48,16 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import _gpc_gate_problem, _sgpr_oracle  # noqa: E402
+from chip_smoke import (_gpc_gate_problem, _lmcq_gate_inputs,  # noqa: E402
+                        _lmcq_zoo_data, _sgpr_oracle)
 from cugp_tpu_torch.data import synthetic  # noqa: E402
-from cugp_tpu_torch.models import gpc_multiclass, sgpr, svgp  # noqa: E402
+from cugp_tpu_torch.models import gpc_multiclass, lmc, sgpr, svgp  # noqa: E402
 from cugp_tpu_torch.ops import cholesky as chol_ops  # noqa: E402
 from cugp_tpu_torch.ops import kernels as kernel_ops  # noqa: E402
 from cugp_tpu_torch.ops import trsm as trsm_ops  # noqa: E402
-from cugp_tpu_torch.oracle import gpc_multiclass_np  # noqa: E402
+from cugp_tpu_torch.oracle import gpc_multiclass_np, lmc_np  # noqa: E402
+from cugp_tpu_torch.utils.params import (params_from_numpy,  # noqa: E402
+                                         params_to_numpy)
 
 
 def _jax():
@@ -54,11 +69,12 @@ def _jax():
         import jax.numpy as jnp
 
         from cugp_tpu.models import gpc_multiclass as jmc
+        from cugp_tpu.models import lmc as jlmc
         from cugp_tpu.models import sgpr as jsgpr
         from cugp_tpu.models import svgp as jsvgp
     except ImportError:
         return None
-    return jax, jnp, jsgpr, jsvgp, jmc
+    return jax, jnp, jsgpr, jsvgp, jmc, jlmc
 
 
 def _fmt(v):
@@ -108,7 +124,7 @@ def case_sgpr(n, J):
         mu_k = float(np.abs((t2.T @ c).numpy() - mu64).max())
     jax_errs = (None,) * 3
     if J is not None:
-        jax, jnp, jsgpr, _, _ = J
+        jax, jnp, jsgpr, _, _, _ = J
         pj = {k: jnp.asarray(v) for k, v in pn.items()}
         args = (pj, jnp.asarray(Z.numpy()), jnp.asarray(X), jnp.asarray(y))
         jax_errs = errs(jsgpr.elbo(*args),
@@ -144,7 +160,7 @@ def case_warm_start(n, J):
                                   Xt, yt))
     jax_rel = None
     if J is not None:
-        jax, jnp, _, jsvgp, _ = J
+        jax, jnp, _, jsvgp, _, _ = J
         pj = {k: jnp.asarray(v) for k, v in pn.items()}
         args = (pj, jnp.asarray(Z.numpy()))
         vpj = jsvgp.optimal_variational(*args, jnp.asarray(X),
@@ -172,7 +188,7 @@ def case_multiclass(J):
             torch.tensor(Y), torch.tensor(Xs), num_newton=30, num_samples=8)
     jax_err = (None, None)
     if J is not None:
-        jax, jnp, _, _, jmc = J
+        jax, jnp, _, _, jmc, _ = J
         _, muj, sigj = jmc.predict_proba(
             {k: jnp.asarray(v) for k, v in p_np.items()}, jnp.asarray(X),
             jnp.asarray(Y), jnp.asarray(Xs), num_newton=30, num_samples=8)
@@ -221,7 +237,7 @@ def case_sgpr_grad(J):
                 float(p64[nm].grad.reshape(-1)[0])) for nm in names}
     jax_g = {nm: None for nm in names}
     if J is not None:
-        jax, jnp, jsgpr, _, _ = J
+        jax, jnp, jsgpr, _, _, _ = J
         g = jax.grad(lambda q: jsgpr.elbo(q, jnp.asarray(Z.numpy()),
                                           jnp.asarray(X), jnp.asarray(y)))(
             {kk: jnp.asarray(v.numpy()) for kk, v in p.items()})
@@ -232,10 +248,69 @@ def case_sgpr_grad(J):
         for nm in names), flush=True)
 
 
+def _tree_f32(tree):
+    """A params tree from JSON: dicts and lists of dicts stay, every other
+    value (a number or a nested list of numbers) becomes a float32 array."""
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list) and tree and isinstance(tree[0], dict):
+        return [_tree_f32(v) for v in tree]
+    return np.asarray(tree, np.float32)
+
+
+def case_lmcq_dense(J, n_q, gate_n, steps, params_json):
+    kinds = ("periodic", "rbf")
+    Xq, Yq = _lmcq_zoo_data(n_q, seed=0)
+    if params_json:
+        p_np = _tree_f32(json.loads(params_json))
+        origin = "given params"
+    else:
+        init = lmc.init_lmcq_params(d=1, p=2, kinds=kinds, lengthscale=0.8,
+                                    noise_var=0.05, seed=0)
+        pt, _ = lmc.fit_lmcq(init, torch.tensor(Xq), torch.tensor(Yq),
+                             kinds=kinds, steps=steps)
+        p_np = params_to_numpy(pt)
+        origin = f"{steps} steps of the port's fit"
+    X, Y, Xs = _lmcq_gate_inputs(Xq, Yq, gate_n)
+    lml64 = lmc_np.log_marginal_likelihood_q(p_np, X, Y, kinds)
+    mu64, var64 = lmc_np.posterior_q(p_np, X, Y, Xs, kinds)
+    S = lmc_np._joint_cov_q(p_np, X, X, kinds)
+    S[np.diag_indices_from(S)] += (
+        np.exp(np.float64(p_np["log_noise_var"]))
+        + 1e-6 * np.max(np.sum(np.float64(p_np["lmc_a"]) ** 2, axis=0)))
+    kappa = np.linalg.cond(S)
+
+    def errs(lml, mu, var):
+        return (abs(float(lml) - lml64) / abs(lml64),
+                float(np.abs(np.asarray(mu, np.float64) - mu64).max()),
+                float(np.abs(np.asarray(var, np.float64) - var64).max()))
+
+    pt = params_from_numpy(p_np, "cpu")
+    with torch.no_grad():
+        port = errs(lmc.log_marginal_likelihood_lmcq(
+            pt, torch.tensor(X), torch.tensor(Y), kinds),
+            *lmc.posterior_lmcq(pt, torch.tensor(X), torch.tensor(Y),
+                                torch.tensor(Xs), kinds))
+    jx = (None, None, None)
+    if J is not None:
+        jax, jnp, _, _, _, jlmc = J
+        pj = jax.tree.map(jnp.asarray, p_np)
+        Xj, Yj = jnp.asarray(X), jnp.asarray(Y)
+        jx = errs(jlmc.log_marginal_likelihood_lmcq(pj, Xj, Yj, kinds),
+                  *jlmc.posterior_lmcq(pj, Xj, Yj, jnp.asarray(Xs), kinds))
+    print(f"[lmcq_dense] n={n_q} gate_n={gate_n} ({origin}) joint "
+          f"condition number {kappa:.3e} (x fp32's eps {kappa * 2**-24:.1e}) "
+          + "; ".join(f"{who}: lml_rel={_fmt(e[0])} mean={_fmt(e[1])} "
+                      f"var={_fmt(e[2])}" for who, e in (("port", port),
+                                                        ("jax", jx))),
+          flush=True)
+
+
 def main(argv):
     opts = dict(a.split("=", 1) for a in argv if a.startswith("--"))
     n = int(opts.get("--n", 131072))
-    cases = opts.get("--cases", "sgpr,warm_start,multiclass,sgpr_grad")
+    cases = opts.get("--cases",
+                     "sgpr,warm_start,multiclass,sgpr_grad,lmcq_dense")
     torch.set_num_threads(os.cpu_count() or 1)
     J = _jax()
     for case in cases.split(","):
@@ -247,6 +322,11 @@ def main(argv):
             case_multiclass(J)
         elif case == "sgpr_grad":
             case_sgpr_grad(J)
+        elif case == "lmcq_dense":
+            case_lmcq_dense(J, int(opts.get("--lmcq_n", 512)),
+                            int(opts.get("--gate_n", 256)),
+                            int(opts.get("--lmcq_steps", 3)),
+                            opts.get("--lmcq_params"))
         else:
             raise SystemExit(f"unknown case {case!r}")
     return 0

@@ -4,6 +4,7 @@ benchmarks/bench_lmcq.py's configuration.
 
     python3 tools/lmcq_cg.py [--n=32768] [--max-iters=6000] [--every=50]
                              [--mc=0,32,128] [--tol=1e-4] [--device=cuda]
+                             [--jax]
 
 Builds chip_smoke.py phase 10(c)'s problem (bench_lmcq's make_data at n,
 d=2, p=2; rbf + matern32 latents at lengthscale 1.2, noise 0.05, init
@@ -17,7 +18,10 @@ recursive one CG's loop tests) and the seconds so far; a solve stops at
 --tol or --max-iters. For the mean solve it then prints the true
 relative residual recomputed without the kernel
 (chip_smoke._lmcq_plain_matvec). --device=cpu runs the plain versions
-(a rehearsal at small n).
+(a rehearsal at small n). --jax (beside the JAX package, on the CPU)
+also runs the JAX package's cg_solve on its own make_lmcq_matvec for the
+mean solve, at the same params, tol and cap, and prints its count and
+true residual: whether the count is the operator's or the port's.
 """
 
 from __future__ import annotations
@@ -65,8 +69,8 @@ def main(argv):
     with torch.no_grad():
         mv = lmc.make_lmcq_matvec(params, X, kinds)
         for mc in (int(m) for m in opts.get("--mc", "0,32,128").split(",")):
-            b = (Y.mT.reshape(-1, 1) if mc == 0 else lmc.lmcq_cross_columns(
-                params, X, X[:mc] + 0.05, kinds)[0])
+            b = (Y.mT.reshape(-1, 1) if mc == 0 else lmc.lmcq_covariance(
+                params, X, X[:mc] + 0.05, kinds))
             bnorm = torch.linalg.vector_norm(b, dim=0)
             s = iterative.cg_init(b)
             sync()
@@ -88,6 +92,39 @@ def main(argv):
                 print(f"[lmcq_cg] n={n} r=1 it={s.it} true_rel_residual="
                       f"{true:.3e} (recomputed without the kernel)",
                       flush=True)
+                if "--jax" in opts:
+                    jax_mean_solve(params, X, kinds, b[:, 0], tol, max_iters,
+                                   bnorm[0])
+    return 0
+
+
+def jax_mean_solve(params, X, kinds, b, tol, max_iters, bnorm):
+    """The JAX package's CG on its own joint operator (blocked XLA
+    route), on the CPU; its true residual recomputed as the port's."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from cugp_tpu.inference import iterative as jiterative
+    from cugp_tpu.models import lmc as jlmc
+    from cugp_tpu_torch.utils.params import params_to_numpy
+
+    import chip_smoke
+
+    mv = jlmc.make_lmcq_matvec(jax.tree.map(jnp.asarray,
+                                            params_to_numpy(params)),
+                               jnp.asarray(X.cpu().numpy()), kinds)
+    t0 = time.perf_counter()
+    x, it = jax.jit(lambda v: jiterative.cg_solve(
+        mv, v, tol=tol, max_iters=max_iters))(jnp.asarray(b.cpu().numpy()))
+    x = torch.as_tensor(np.asarray(x), device=X.device)
+    res = b - chip_smoke._lmcq_plain_matvec(torch, params, X, kinds, x)[:, 0]
+    print(f"[lmcq_cg] n={X.shape[0]} r=1 jax it={int(it)} true_rel_residual="
+          f"{float(torch.linalg.vector_norm(res) / bnorm):.3e} "
+          f"seconds={time.perf_counter() - t0:.3f}", flush=True)
     return 0
 
 
