@@ -77,7 +77,7 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      against each chain alone and against the dense LML (value a point,
      gradient within 5 MC SE of its probes); then
      sample_hyperparams_checkpointed(engine="iterative") killed half way
-     and resumed (4 warm-up transitions, 4 draws of 8 leapfrog steps):
+     and resumed (4 warm-up transitions, 4 draws of 4 leapfrog steps):
      samples/s, s/transition, CG iterations, peak memory beside the
      dense engine's, launch counters read around the two calls (the
      iterative samplers path); a killed-and-resumed run bitwise equal
@@ -118,7 +118,24 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      matern32, r = 1, 8, 256) and the (4, 8000, 8000) batched Cholesky,
      each against its plain version or the library. (a), (b), (c) are
      the paths lmc_icm, lmc_q_dense, lmc_q_iterative of the launch
-     counters.
+     counters; the 65,536-row factor's library time
+     (torch.linalg.cholesky) once the port's factor is freed;
+ 11. the CLI (python -m cugp_tpu_torch.cli, each verb run in this
+     process through its main with --device=cuda, stdout captured):
+     (a) fit at config 2 twice on one --checkpoint_dir (the second
+     resumes; the --metrics_file holds a neg_lml line a step and a
+     fit_done event a call), predict's 256-point mean against the
+     float64 oracle, the native C++ oracle's LML on 2,048 rows against
+     the numpy one; (b) fit --fit.engine=iterative at n=32768, 3 steps
+     resumed to 6 against 6 uninterrupted (first losses bitwise, params
+     1e-4); (c) the checkpointed HMC at config 3's width (256 chains,
+     n=512), 4 draws resumed to 8, bitwise the uninterrupted posterior;
+     (d) the matrix-free sampler at n=8192; (e) vi; (f) sgpr at
+     n=131,072; (g) svgp bernoulli at n=131,072 (accuracy >= 0.95); (h)
+     classify, 2 and 3 classes; (i) info; (j) --profile on a 3-step fit,
+     the trace naming the cov, potrf and TRSM kernels; (k)
+     utils.supervise over a CLI fit child SIGKILLed once its heartbeat
+     appears. The verbs' launches are the path cli (all four kernels).
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
 Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), one
@@ -127,7 +144,7 @@ of 256 chains at config 3 (phase 7), and one evaluation of the 8-chain
 matrix-free log density at the last draws (phase 8), and one SGPR step
 and one step of each classifier (phase 9), one fit step of each dense
 LMC model and one predict_iterative chunk of the matrix-free one (phase
-10).
+10); phase 11 takes no --profile (its own --profile=DIR is step (j)).
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1981,7 +1998,7 @@ def _per_probe_grads(torch, lpg_args, q, precond, Z, block=2048):
 
 
 def phase_iterative_sampling(torch, dev, profile=False, n=32768, chains=8,
-                             warmup=4, draws=4, n_leapfrog=8, probes=16,
+                             warmup=4, draws=4, n_leapfrog=4, probes=16,
                              steps=32, rank=128, n_gate=8, resume_n=2048):
     """Matrix-free hyperparameter HMC at n=32768 (benchmarks/bench_hmc.py's
     iterative engine: sinusoid_1d(n), rbf, init lengthscale 0.8, noise
@@ -1989,7 +2006,8 @@ def phase_iterative_sampling(torch, dev, profile=False, n=32768, chains=8,
     preconditioner, CG tol 1e-5), through
     sample_hyperparams_checkpointed(engine="iterative"): half the draws
     into a checkpoint, then a resumed call to all of them (cut to 4
-    warm-up transitions and 4 draws of 8 leapfrog steps; PERF.md §4).
+    warm-up transitions and 4 draws of 4 leapfrog steps, JAX's 16;
+    PERF.md §4).
     Gates: the batched
     density against each chain alone; against the dense exact LML (value
     per point, gradient within 5 MC SE of its probes); finite draws; a
@@ -3105,7 +3123,15 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
             recon_relerr_first_4096_rows=f"{relerr:.3e}")
         gate(finite and relerr < 2e-4, f"joint cholesky n={pn}: finite="
              f"{finite}, recon relerr {relerr:.3e} (gate 2e-4, phase 4's)")
-        del S, L
+        del L
+        torch.cuda.empty_cache()
+        # the library's factor of the same matrix, once its own is freed
+        # (S and one output: 2 x 17.2 GB)
+        lib_ms = cuda_ms(lambda: torch.linalg.cholesky(S), iters=1,
+                         warmup=1)
+        say("lmc", kernel="potrf", shape=f"joint cholesky n={pn}",
+            library_ms=f"{lib_ms:.4f}", library="torch.linalg.cholesky")
+        del S
         torch.cuda.empty_cache()
 
         # (d) the matvec and batched Cholesky at this phase's shapes
@@ -3140,6 +3166,368 @@ def phase_lmc(torch, dev, profile=False, n_icm=8000, icm_steps=20,
         pool.join()
     say("lmc", phase_s=f"{time.perf_counter() - t_phase:.3f}")
     gates.finish("LMC phase")
+    return gates.paths
+
+
+# ---- phase 11: the CLI ----
+
+def _json_objects(text):
+    """Every JSON object printed in text, in order (a verb prints one;
+    predict prints the fit's and its own)."""
+    dec, out, i = json.JSONDecoder(), [], 0
+    while True:
+        i = text.find("{", i)
+        if i < 0:
+            return out
+        obj, i = dec.raw_decode(text, i)
+        out.append(obj)
+
+
+def _metrics_series(path, name):
+    from cugp_tpu_torch.utils.metrics import read_metrics
+
+    return [r[name] for r in read_metrics(path) if name in r]
+
+
+def _supervised_fit(tmp, dev, n, steps):
+    """utils.supervise over a real CLI fit child in its own process,
+    SIGKILLed once its heartbeat (the metrics file) appears; the child is
+    found among this process's own children by its /proc cmdline, never
+    by pattern. Returns (supervisor rc, killed, seconds, meta)."""
+    import signal
+    import threading
+
+    from cugp_tpu_torch.utils import checkpoint, supervise
+
+    ck = os.path.join(tmp, "sup_ck")
+    hb = os.path.join(tmp, "sup_metrics.jsonl")
+    child = [sys.executable, "-m", "cugp_tpu_torch.cli", "fit",
+             f"--device={dev.type}", f"--data.n={n}",
+             "--data.dataset=multidim", "--data.d=4", f"--fit.steps={steps}",
+             f"--checkpoint_dir={ck}", f"--metrics_file={hb}"]
+    killed = []
+
+    def own_children():
+        me = str(os.getpid())
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    ppid = f.read().rsplit(")", 1)[1].split()[1]
+                with open(f"/proc/{pid}/cmdline") as f:
+                    cmdline = f.read()
+            except OSError:
+                continue
+            if ppid == me:
+                yield int(pid), cmdline
+
+    def killer():
+        deadline = time.time() + 600
+        while time.time() < deadline and not os.path.exists(hb):
+            time.sleep(0.2)
+        for pid, cmdline in own_children():
+            if "cugp_tpu_torch.cli" in cmdline:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                    killed.append(pid)
+                except ProcessLookupError:
+                    pass
+                return
+
+    # the child imports the package from beside this script
+    env_pp = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + ([env_pp] if env_pp else []))
+    t = threading.Thread(target=killer)
+    t.start()
+    t0 = time.perf_counter()
+    try:
+        rc = supervise.supervise(child, hb, timeout=600, max_restarts=2,
+                                 poll=0.2, _log=lambda s: say("cli", **{
+                                     "supervisor": s}))
+    finally:
+        t.join()
+        if env_pp is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = env_pp
+    return rc, killed, time.perf_counter() - t0, checkpoint.peek_meta(ck)
+
+
+def phase_cli(torch, dev, n_fit=8000, fit_steps=20, n_it=32768, it_steps=6,
+              n_hmc=512, hmc_chains=256, hmc_warmup=8, hmc_draws=8,
+              n_it_sample=8192, it_chains=8, vi_steps=200, n_sgpr=131072,
+              sgpr_steps=50, n_svgp=131072, svgp_steps=1000, n_cls=4096,
+              cls_steps=10, native_n=2048, sup_steps=200):
+    """The port's CLI (python -m cugp_tpu_torch.cli), each verb run in
+    this process through cli.__main__.main(argv) with --device set and
+    its stdout captured, at users' sizes: (a) fit at config 2 twice on
+    one --checkpoint_dir (the second resumes) with --metrics_file,
+    predict's mean against the float64 oracle, and the native C++
+    oracle's LML against the numpy one; (b) the iterative fit at n=32768
+    killed after half its steps and resumed, against an uninterrupted
+    run; (c) the checkpointed HMC at config 3's width, resumed, against
+    an uninterrupted run; (d) the matrix-free sampler; (e) vi; (f) sgpr;
+    (g) svgp bernoulli; (h) classify, binary and 3 classes; (i) info;
+    (j) --profile on a 3-step fit; (k) utils.supervise over a CLI fit
+    child killed once its heartbeat appears. The launches of the verbs
+    run in this process are the path "cli"."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import cugp_tpu_torch
+    from cugp_tpu_torch.cli.__main__ import main as cli_main
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.oracle import exact_gp_np as oracle
+    from cugp_tpu_torch.oracle import native
+    from cugp_tpu_torch.utils import checkpoint
+
+    gates = Gates(torch, "cli")
+    gate = gates.gate
+    total = dict.fromkeys(_wrappers(), 0)
+    on = f"--device={dev.type}"
+
+    def verb(part, *argv):
+        """main(argv) with stdout captured: (its JSON objects, seconds)."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([argv[0], on, *argv[1:]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] += v
+        say("cli", part=part, wall_s=f"{wall:.3f}",
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            launches=json.dumps(launches, separators=(",", ":")))
+        if rc != 0:
+            fail(f"cli {part}: main returned {rc}")
+        return _json_objects(buf.getvalue()), wall
+
+    def finite(tree):
+        if isinstance(tree, dict):
+            return all(finite(v) for v in tree.values())
+        if isinstance(tree, list):
+            return all(finite(v) for v in tree)
+        return bool(np.isfinite(tree))
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # (a) fit at config 2, resumed from its own checkpoint
+        cfg2 = ["--data.dataset=multidim", f"--data.n={n_fit}", "--data.d=4"]
+        ck, mf = os.path.join(tmp, "fit"), os.path.join(tmp, "fit.jsonl")
+        args = ["fit", *cfg2, f"--fit.steps={fit_steps}",
+                f"--checkpoint_dir={ck}", f"--metrics_file={mf}"]
+        (o1,), _ = verb("fit", *args)
+        (o2,), _ = verb("fit_resumed", *args)
+        neg = _metrics_series(mf, "neg_lml")
+        done = _metrics_series(mf, "event")
+        say("cli", part="fit", lml=f"{o1['lml']:.4f}",
+            lml_resumed=f"{o2['lml']:.4f}", resumed=(o1["resumed"],
+                                                     o2["resumed"]),
+            neg_lml_lines=len(neg), fit_done_events=done.count("fit_done"))
+        gate(o1["resumed"] is False and o2["resumed"] is True,
+             "fit: the second call on one checkpoint_dir did not resume")
+        gate(len(neg) == 2 * fit_steps and done.count("fit_done") == 2,
+             "fit: the metrics file lacks a neg_lml line a step or a "
+             "fit_done event a call")
+        gate(np.isfinite(o1["lml"]) and np.isfinite(o2["lml"]),
+             "fit: LML not finite")
+
+        ckp = os.path.join(tmp, "predict")
+        (fo, po), _ = verb("predict", "predict", *cfg2,
+                           f"--fit.steps={fit_steps}",
+                           f"--checkpoint_dir={ckp}")
+        gp = cugp_tpu_torch.GP.load(ckp, device=dev)
+        X32 = gp.X.cpu().numpy()
+        lo, hi = X32.min(axis=0), X32.max(axis=0)
+        Xs = np.linspace(lo, hi, 256).reshape(256, -1)
+        with torch.no_grad():
+            mu = gp.predict(Xs)[0].cpu().numpy()
+        p64 = {k: v.cpu().numpy().astype(np.float64)
+               for k, v in gp.params.items()}
+        y64 = gp.y.cpu().numpy().astype(np.float64)
+        mu64, _ = oracle.posterior(p64, X32.astype(np.float64), y64,
+                                   Xs.astype(np.float64))
+        err = float(np.abs(mu - mu64).max())
+        head_same = np.array_equal(np.float32(po["mu_head"]), mu[:8])
+        say("cli", part="predict", points=256, mean_err_vs_float64=f""
+            f"{err:.3e}", head_as_printed=head_same)
+        gate(err <= 1e-3, f"predict: 256-point mean off float64 by {err:.3e}"
+             " (gate 1e-3)")
+        gate(head_same, "predict: the printed mu_head is not the saved "
+             "model's prediction")
+        Xn, yn = X32[:native_n].astype(np.float64), y64[:native_n]
+        t0 = time.perf_counter()
+        ok_native = native.available()
+        lml_c = (native.log_marginal_likelihood(p64, Xn, yn)
+                 if ok_native else float("nan"))
+        t_native = time.perf_counter() - t0
+        lml_np = oracle.log_marginal_likelihood(p64, Xn, yn)
+        rel = abs(lml_c - lml_np) / abs(lml_np)
+        say("cli", part="native_oracle", n=native_n, built=ok_native,
+            lml_cpp=f"{lml_c:.10f}", lml_numpy=f"{lml_np:.10f}",
+            rel_err=f"{rel:.3e}", seconds=f"{t_native:.3f}")
+        gate(ok_native and rel <= 1e-8, f"native oracle: LML {rel:.3e} "
+             "relative off the numpy oracle (gate 1e-8) or not built")
+
+        # (b) the iterative fit killed half way and resumed
+        it = ["fit", "--fit.engine=iterative", "--data.dataset=multidim",
+              f"--data.n={n_it}", "--data.d=4"]
+        full, part = os.path.join(tmp, "it_full"), os.path.join(tmp, "it")
+        mf_full, mf_b = (os.path.join(tmp, f"it_{k}.jsonl")
+                         for k in ("full", "b"))
+        (of,), t_full = verb("fit_iterative", *it, f"--fit.steps={it_steps}",
+                             f"--checkpoint_dir={full}",
+                             f"--metrics_file={mf_full}")
+        verb("fit_iterative_part", *it,
+             f"--fit.steps={it_steps // 2}", f"--checkpoint_dir={part}")
+        (ob,), _ = verb("fit_iterative_resumed", *it,
+                        f"--fit.steps={it_steps}", f"--checkpoint_dir={part}",
+                        f"--metrics_file={mf_b}")
+        meta = checkpoint.peek_meta(part + "_fit_state") or {}
+        l_full, l_b = (_metrics_series(f, "neg_lml") for f in (mf_full, mf_b))
+        h = it_steps // 2
+        dp = max(abs(np.asarray(ob["params"][k], np.float64)
+                     - np.asarray(of["params"][k], np.float64)).max()
+                 for k in of["params"])
+        say("cli", part="fit_iterative", n=n_it, steps=it_steps,
+            fit_s_per_step=f"{of['seconds'] / it_steps:.4f}",
+            call_s=f"{t_full:.3f}",
+            cg_iters_last=(of.get("cg_iters_last"), ob.get("cg_iters_last")),
+            precond_rebuilds=(of.get("precond_rebuilds"),
+                              ob.get("precond_rebuilds")),
+            fit_state_step=meta.get("step"), resumed=ob["resumed"],
+            first_losses_bitwise=l_b[:h] == l_full[:h],
+            params_maxdiff=f"{dp:.3e}", lml=f"{of['lml']:.4f}",
+            lml_resumed=f"{ob['lml']:.4f}")
+        gate(meta.get("step") == it_steps and ob["resumed"] is True,
+             "fit_iterative: the fit state was not saved at the last step "
+             "or the call did not resume")
+        gate(len(l_b) == len(l_full) == it_steps and l_b[:h] == l_full[:h],
+             "fit_iterative: the resumed run's first losses are not the "
+             "uninterrupted run's bit for bit")
+        gate(dp <= 1e-4, f"fit_iterative: resumed params {dp:.3e} off the "
+             "uninterrupted run's (gate 1e-4)")
+        gate(all(k in o for o in (of, ob)
+                 for k in ("cg_iters_last", "precond_rebuilds")),
+             "fit_iterative: cg_iters_last or precond_rebuilds not printed")
+
+        # (c) the checkpointed HMC at config 3's width, resumed
+        hmc = ["sample", f"--data.n={n_hmc}",
+               f"--sample.num_chains={hmc_chains}", "--sample.sampler=hmc",
+               f"--sample.num_warmup={hmc_warmup}",
+               f"--sample.checkpoint_every={hmc_draws // 2}"]
+        d3, d3f = os.path.join(tmp, "hmc"), os.path.join(tmp, "hmc_full")
+        verb("sample_part", *hmc,
+             f"--sample.num_samples={hmc_draws // 2}", f"--checkpoint_dir={d3}")
+        (sb,), _ = verb("sample_resumed", *hmc,
+                        f"--sample.num_samples={hmc_draws}",
+                        f"--checkpoint_dir={d3}")
+        (sf,), t_sf = verb("sample", *hmc, f"--sample.num_samples={hmc_draws}",
+                           f"--checkpoint_dir={d3f}")
+        same = all(sb["posterior"][k][s] == sf["posterior"][k][s]
+                   for k in sf["posterior"] for s in ("mean", "std"))
+        rhat = {k: v["r_hat"] for k, v in sb["posterior"].items()}
+        say("cli", part="sample_hmc", n=n_hmc, chains=hmc_chains,
+            draws=hmc_draws, resumed=sb["resumed"],
+            draws_done=sb["draws_done"], mean_std_bitwise=same,
+            r_hat=json.dumps(rhat), accept_rate=f"{sb['accept_rate']:.4f}",
+            samples_per_s=f"{hmc_draws * hmc_chains / t_sf:.2f}")
+        gate(sb["resumed"] is True and sb["draws_done"] == hmc_draws,
+             "sample: the second call did not resume to every draw")
+        gate(same, "sample: the resumed posterior's mean and std are not "
+             "the uninterrupted run's bit for bit")
+        gate(finite(rhat), "sample: R-hat not finite")
+
+        # (d) the matrix-free sampler
+        (si,), _ = verb("sample_iterative", "sample",
+                           "--sample.engine=iterative",
+                           f"--data.n={n_it_sample}",
+                           f"--sample.num_chains={it_chains}",
+                           "--sample.sampler=hmc", "--sample.num_warmup=2",
+                           "--sample.num_samples=2")
+        draws_ok = finite({k: [v["mean"], v["std"]]
+                           for k, v in si["posterior"].items()})
+        say("cli", part="sample_iterative", n=n_it_sample, chains=it_chains,
+            draws_finite=draws_ok, accept_rate=f"{si['accept_rate']:.4f}")
+        gate(draws_ok, "sample --sample.engine=iterative: draws not finite")
+
+        # (e)-(h) vi, sgpr, svgp, classify
+        (vo,), _ = verb("vi", "vi", f"--data.n={n_hmc}",
+                        f"--fit.steps={vi_steps}")
+        say("cli", part="vi", elbo=f"{vo['elbo']:.4f}")
+        gate(np.isfinite(vo["elbo"]) and finite(vo["mean"]),
+             "vi: ELBO or mean not finite")
+        (go,), _ = verb("sgpr", "sgpr", "--data.dataset=multidim",
+                        f"--data.n={n_sgpr}", "--data.d=4",
+                        f"--fit.steps={sgpr_steps}")
+        say("cli", part="sgpr", elbo=f"{go['elbo']:.4f}",
+            num_inducing=go["num_inducing"],
+            s_per_step=f"{go['seconds'] / sgpr_steps:.4f}",
+            train_rmse_head=f"{go['train_rmse_head']:.4f}")
+        gate(np.isfinite(go["elbo"]) and go["num_inducing"] == min(
+            n_sgpr // 4, 512), "sgpr: ELBO not finite or wrong m")
+        (vg,), _ = verb("svgp", "svgp", "--svgp.likelihood=bernoulli",
+                        f"--data.n={n_svgp}", f"--fit.steps={svgp_steps}")
+        say("cli", part="svgp", accuracy=vg["train_accuracy"],
+            s_per_step=f"{vg['seconds'] / svgp_steps:.5f}",
+            elbo_batch_final=f"{vg['elbo_batch_final']:.4f}")
+        gate(vg["train_accuracy"] >= 0.95, "svgp: train accuracy "
+             f"{vg['train_accuracy']} below 0.95")
+        for classes in (2, 3):
+            (co,), _ = verb(f"classify_{classes}", "classify",
+                            f"--data.n={n_cls}", f"--fit.steps={cls_steps}",
+                            f"--data.num_classes={classes}")
+            say("cli", part=f"classify_{classes}",
+                lml=f"{co['laplace_lml']:.4f}",
+                accuracy=co["train_accuracy"])
+            gate(np.isfinite(co["laplace_lml"]) and co["num_classes"]
+                 == classes, f"classify ({classes} classes): LML not finite")
+
+        # (i) info
+        (io_,), _ = verb("info", "info")
+        say("cli", part="info", devices=json.dumps(io_["devices"]),
+            torch_version=io_["torch"], cuda=io_["cuda_available"])
+        gate(io_["cuda_available"] and io_["device_count"] >= 1,
+             "info: no card reported")
+        # (j) --profile on a 3-step fit
+        prof = os.path.join(tmp, "profile")
+        verb("fit_profiled", "fit", *cfg2, "--fit.steps=3",
+             f"--profile={prof}")
+        trace_path = os.path.join(prof, "trace.json")
+        text = (open(trace_path).read() if os.path.exists(trace_path)
+                else "")
+        named = {k: k in text for k in ("cov_tile_kernel", "potrf_kernel",
+                                        "trsm_")}
+        say("cli", part="profile", trace_bytes=len(text),
+            kernels_named=json.dumps(named))
+        gate(all(named.values()), f"--profile: the trace names {named}")
+        gates.paths["cli"] = dict(total)
+        say("cli", part="cli", launches=json.dumps(
+            total, separators=(",", ":")))
+        for name, v in total.items():
+            gate(v > 0, f"cli: the {name} kernel was never launched")
+
+
+        # (k) supervision of a CLI child killed once its heartbeat appears
+        torch.cuda.empty_cache()  # room for the child on the card
+        rc, killed, t_sup, meta = _supervised_fit(tmp, dev, n_fit, sup_steps)
+        say("cli", part="supervise", rc=rc, killed=killed,
+            seconds=f"{t_sup:.3f}", meta_step=(meta or {}).get("step"))
+        gate(rc == 0 and meta is not None, "supervise: rc != 0 or no "
+             "checkpoint meta")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("cli", phase_s=f"{time.perf_counter() - t_phase:.3f}")
+    gates.finish("CLI phase")
     return gates.paths
 
 
@@ -3198,7 +3586,7 @@ def main(argv):
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
     phases = {int(v) for v in
-              opts.get("--phases", "0,1,2,3,4,5,6,7,8,9,10").split(",")}
+              opts.get("--phases", "0,1,2,3,4,5,6,7,8,9,10,11").split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
@@ -3231,7 +3619,10 @@ def main(argv):
             torch, dev, profile="--profile" in opts))
     if 10 in phases:
         paths.update(phase_lmc(torch, dev, profile="--profile" in opts))
-    if phases != set(range(11)):
+        torch.cuda.empty_cache()
+    if 11 in phases:
+        paths.update(phase_cli(torch, dev))
+    if phases != set(range(12)):
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

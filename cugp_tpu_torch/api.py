@@ -426,8 +426,9 @@ class GP:
         """Matrix-free MAP hyperparameter fit (map_opt.fit_iterative) for N
         beyond the dense ceiling: per step, preconditioned CG solves and a
         Hutchinson/AD gradient sweep; K is never formed. Extra kwargs
-        (precond_rank, num_probes, tol, block, probes, probe_mode, ...)
-        pass through. Returns the info dict."""
+        (precond_rank, num_probes, tol, block, probes, probe_mode,
+        checkpoint_dir, checkpoint_every, ...) pass through. Returns the
+        info dict."""
         from cugp_tpu_torch.inference import map_opt
 
         X, y = self._data(X, y)

@@ -305,13 +305,63 @@ def check_iterative_schedule(segment_iters="auto", precond_where="auto"):
         raise ValueError(f"unknown precond_where {precond_where!r}")
 
 
+def _adam_state(opt, params):
+    """torch Adam's state over params' leaves as optax.adam's leaves
+    [count (int32), mu, nu], mu and nu nested like params."""
+    state = {id(p): opt.state.get(p, {}) for p in tree_leaves(params)}
+    count = max((int(st["step"]) for st in state.values() if st), default=0)
+
+    def moment(name):
+        return tree_map(lambda p: state[id(p)].get(name, torch.zeros_like(p)),
+                        params)
+
+    return [np.asarray(count, np.int32), moment("exp_avg"),
+            moment("exp_avg_sq")]
+
+
+@torch.no_grad()
+def _restore_fit_state(path, params, opt, kind, n):
+    """Load a fit_iterative checkpoint at `path` (either package's) into
+    params (in place) and opt's state. Returns (its step, its losses as
+    floats); (0, []) when there is none."""
+    from cugp_tpu_torch.utils import checkpoint
+    from cugp_tpu_torch.utils.params import params_to_numpy
+
+    p_np = params_to_numpy(params)
+    tree, meta = checkpoint.restore(path, {
+        "losses": np.zeros(0, np.float32),
+        "opt": [np.zeros((), np.int32), p_np, p_np], "params": p_np})
+    if tree is None:
+        return 0, []
+    extra = meta.get("extra", {})
+    if (extra.get("kind", kind), extra.get("n", n)) != (kind, n):
+        raise ValueError(f"{path} holds the fit state of kind="
+                         f"{extra.get('kind')!r}, n={extra.get('n')}; this "
+                         f"fit is kind={kind!r}, n={n}")
+    count, mu, nu = tree["opt"]
+    for p, v, m, s2 in zip(tree_leaves(params), tree_leaves(tree["params"]),
+                           tree_leaves(mu), tree_leaves(nu)):
+        if tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"{path}: a saved leaf has shape {v.shape}, "
+                             f"the params' {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.asarray(v, np.float32)))
+        if int(count):
+            opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": torch.from_numpy(
+                    np.array(m, np.float32)).to(p.device),
+                "exp_avg_sq": torch.from_numpy(
+                    np.array(s2, np.float32)).to(p.device)}
+    return int(meta["step"]), [float(v) for v in tree["losses"]]
+
+
 def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
                   learning_rate=0.05, block=4096, tol=1e-4, max_iters=400,
                   num_probes=16, precond_rank=128, precond_refresh="auto",
                   precond_where="auto", split_programs="auto",
                   generator=None, probes=None, log_prior=None,
                   grad_method="ad", callback=None, checkpoint_dir=None,
-                  segment_iters="auto",
+                  checkpoint_every=5, segment_iters="auto",
                   probe_mode="fresh", warm_start=True, refresh_factor=1.5,
                   final_lml=False, verbose=False):
     """Matrix-free MAP fit: Adam over the Hutchinson gradient estimator
@@ -336,6 +386,20 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     frozen probes when there are any) so info["lml"] is a real LML.
     callback: optional fn(step, params, value, grads).
 
+    checkpoint_dir: every `checkpoint_every` steps, and at the end, the
+    params, Adam's state and the loss trace are saved there
+    (utils.checkpoint) in the JAX package's layout (optax's ``count``,
+    ``mu``, ``nu`` for torch's ``step``, ``exp_avg``, ``exp_avg_sq``; the
+    step as the checkpoint's; extra {"kind", "n"}), so a fit-state
+    directory resumes in either package. A call whose directory holds a
+    checkpoint resumes at its step. "fresh" probes stay those of an
+    uninterrupted run: the generator first skips the draws of the steps
+    already taken. Neither the preconditioner nor the warm start's x0
+    is saved (as in the JAX package): a resumed run rebuilds the one and
+    starts CG from zero once. A JAX-written state resumes on the port's
+    probes (the JAX package's fold_in(key, step) stream cannot be
+    redrawn).
+
     Returns (params, info): info["loss"] the per-step negative quad-form
     objective, info["quad_obj"], info["cg_iters"] (np.int32, split path),
     info["precond_rebuilds"], info["lml"] (NaN unless final_lml).
@@ -349,9 +413,6 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     if probe_mode not in ("fresh", "frozen"):
         raise ValueError(f"unknown probe_mode {probe_mode!r}")
     check_iterative_schedule(segment_iters, precond_where)
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir: checkpoint/resume is "
-                                  + _NOT_PORTED_ITEM.format(16))
     n = X.shape[0]
     if split_programs == "auto":
         split_programs = n >= 32768
@@ -372,16 +433,39 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     leaves = tree_leaves(params)
     opt = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999),
                            eps=1e-8)
-    losses, cg_iters = [], []
+    losses, start_step = [], 0
+    if checkpoint_dir:
+        start_step, losses = _restore_fit_state(checkpoint_dir, params, opt,
+                                                kind, n)
+        if verbose and start_step:
+            print(f"# fit_iterative: resumed at step {start_step}",
+                  file=sys.stderr, flush=True)
+        if probe_mode == "fresh":
+            # the draws the steps before start_step made, so that step s
+            # draws the probes of an uninterrupted run
+            for _ in range(start_step):
+                torch.randint(0, 2, (n, num_probes), generator=generator,
+                              device=generator.device)
+
+    def save_state(step_done):
+        from cugp_tpu_torch.utils import checkpoint
+
+        checkpoint.save(checkpoint_dir, {
+            "losses": np.asarray(losses, np.float32),
+            "opt": _adam_state(opt, params),
+            "params": params,
+        }, step=step_done, extra_json={"kind": kind, "n": int(n)})
+
+    cg_iters = []
     precond, rebuilds = None, 0
     best_since = float("inf")  # best CG count since the last build
     need_rebuild = False
     prev_sol = None            # previous step's [y | z] solution
-    for step in range(steps):
+    for step in range(start_step, steps):
         if precond_rank and (precond is None or need_rebuild
                              or (not adaptive_refresh
                                  and step % precond_refresh == 0
-                                 and step > 0)):
+                                 and step > start_step)):
             precond = iterative.precond_factors(params, X, precond_rank,
                                                 kind=kind, jitter=jitter)
             rebuilds += 1
@@ -431,12 +515,17 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
         _clamp(params)
         loss = -float(value)
         losses.append(loss)
+        if checkpoint_dir and (step + 1) % checkpoint_every == 0:
+            save_state(step + 1)
         if callback is not None:
             callback(step, params, float(value), grads)
         if verbose:
             it_msg = f" cg_it={it}" if it >= 0 else ""
             print(f"# fit_iterative step {step}: quad-obj={-loss:.4f}"
                   f"{it_msg}", file=sys.stderr, flush=True)
+    if checkpoint_dir and start_step < steps:
+        # a checkpoint already past `steps` keeps its own step
+        save_state(steps)
     info = {"loss": torch.tensor(losses, dtype=torch.float32),
             "quad_obj": -losses[-1] if losses else float("nan"),
             "cg_iters": np.asarray(cg_iters, np.int32),

@@ -511,13 +511,16 @@ def potential_scale_reduction(x):
 
 
 def effective_sample_size(x, max_lag=100):
-    """Crude ESS via initial positive-sequence autocorrelation sum."""
+    """Crude ESS via initial positive-sequence autocorrelation sum. With
+    fewer than 3 draws there is no lag to sum and tau is 1 (the JAX
+    package's stack of no lags raises there)."""
     x = torch.as_tensor(x)
     s = x.shape[0]
     xc = x - x.mean(dim=0, keepdim=True)
     var = torch.mean(xc * xc, dim=0) + 1e-12
     rhos = torch.stack([torch.mean(xc[:-lag] * xc[lag:], dim=0) / var
-                        for lag in range(1, min(max_lag, s - 1))])  # (L, c)
+                        for lag in range(1, min(max_lag, s - 1))]
+                       or [torch.zeros_like(var)])  # (L, c)
     # truncate at first negative autocorrelation (per chain)
     pos = torch.cumprod((rhos > 0).to(rhos.dtype), dim=0)
     tau = 1.0 + 2.0 * torch.sum(rhos * pos, dim=0)

@@ -524,8 +524,8 @@ def test_precond_cache_keyed_on_the_callers_dict(problem, monkeypatch):
 
 
 def test_unported_arguments_raise(problem):
-    """The tunnel workarounds and the modules not ported yet raise
-    NotImplementedError naming their ROADMAP items."""
+    """The tunnel workarounds raise NotImplementedError naming their
+    ROADMAP item."""
     X, y, P = problem
     gp = cugp_tpu_torch.GP(kind="rbf", device="cpu").condition(X, y,
                                                                params=P)
@@ -535,8 +535,6 @@ def test_unported_arguments_raise(problem):
         gp.log_marginal_likelihood_iterative(segment_iters=16)
     with pytest.raises(NotImplementedError, match="item 12"):
         gp.fit_iterative(X, y, steps=1, precond_where="host")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        gp.fit_iterative(X, y, steps=1, checkpoint_dir="ckpt")
 
 
 def test_gp_defaults_to_the_card():
