@@ -77,7 +77,7 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      against each chain alone and against the dense LML (value a point,
      gradient within 5 MC SE of its probes); then
      sample_hyperparams_checkpointed(engine="iterative") killed half way
-     and resumed (4 warm-up transitions, 4 draws of 4 leapfrog steps):
+     and resumed (3 warm-up transitions, 2 draws of 4 leapfrog steps):
      samples/s, s/transition, CG iterations, peak memory beside the
      dense engine's, launch counters read around the two calls (the
      iterative samplers path); a killed-and-resumed run bitwise equal
@@ -135,7 +135,28 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      classify, 2 and 3 classes; (i) info; (j) --profile on a 3-step fit,
      the trace naming the cov, potrf and TRSM kernels; (k)
      utils.supervise over a CLI fit child SIGKILLed once its heartbeat
-     appears. The verbs' launches are the path cli (all four kernels).
+     appears. The verbs' launches are the path cli (all four kernels);
+ 12. the distributed tier (cugp_tpu_torch/parallel) in spawned rank
+     processes that load the library the parent built: (a) one rank on
+     NCCL at config 4's N=32768, d=8 (distributed_cholesky, chunk 8192,
+     phase 4's gate; distributed_lml and its gradient against the
+     single-device LML), with two ranks asking NCCL for the one card
+     beside it (its answer printed); (b) four ranks on gloo sharing the
+     card, CUDA tensors, the collectives gloo does not carry for CUDA
+     staged through the host and counted: config 4 (ring covariance
+     against train_covariance's rows, the relayout round trip bitwise,
+     block-cyclic and chunked Cholesky on phase 4's gate, distributed_lml
+     and its gradient, two sharded MAP steps at N=8192 against map_opt.fit
+     and bitwise across ranks), config 3's 256 chains over dp=4 with one
+     process's draws replayed (adaptation equal on every rank), the
+     large-N sampler at N=8192 (its density against the single-device
+     one), config 5 at N=100,000 over a ring of four (the matvec at r=9
+     against the matvec kernel, a preconditioned CG mean solve with
+     phase 5's certificate, the posterior at 128 points against the
+     single-device one), fit_iterative_sharded and the matrix-free
+     sampler at n=32768. `[dist]` lines: each part's wall s, each rank's
+     peak memory, staged bytes and launches, every gate's reading; the
+     ranks' launches are the path distributed (cov, potrf, TRSM).
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
 Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), one
@@ -1998,16 +2019,16 @@ def _per_probe_grads(torch, lpg_args, q, precond, Z, block=2048):
 
 
 def phase_iterative_sampling(torch, dev, profile=False, n=32768, chains=8,
-                             warmup=4, draws=4, n_leapfrog=4, probes=16,
+                             warmup=2, draws=2, n_leapfrog=4, probes=16,
                              steps=32, rank=128, n_gate=8, resume_n=2048):
     """Matrix-free hyperparameter HMC at n=32768 (benchmarks/bench_hmc.py's
     iterative engine: sinusoid_1d(n), rbf, init lengthscale 0.8, noise
     0.05; 8 chains, 16 frozen probes, 32 SLQ steps, a rank-128
     preconditioner, CG tol 1e-5), through
     sample_hyperparams_checkpointed(engine="iterative"): half the draws
-    into a checkpoint, then a resumed call to all of them (cut to 4
-    warm-up transitions and 4 draws of 4 leapfrog steps, JAX's 16;
-    PERF.md §4).
+    into a checkpoint, then a resumed call to all of them (cut to
+    num_warmup=2, three warm-up transitions, and 2 draws of 4 leapfrog
+    steps, JAX's 16; PERF.md §4).
     Gates: the batched
     density against each chain alone; against the dense exact LML (value
     per point, gradient within 5 MC SE of its probes); finite draws; a
@@ -3258,7 +3279,7 @@ def phase_cli(torch, dev, n_fit=8000, fit_steps=20, n_it=32768, it_steps=6,
               n_hmc=512, hmc_chains=256, hmc_warmup=8, hmc_draws=8,
               n_it_sample=8192, it_chains=8, vi_steps=200, n_sgpr=131072,
               sgpr_steps=50, n_svgp=131072, svgp_steps=1000, n_cls=4096,
-              cls_steps=10, native_n=2048, sup_steps=200):
+              cls_steps=10, native_n=2048, sup_steps=20):
     """The port's CLI (python -m cugp_tpu_torch.cli), each verb run in
     this process through cli.__main__.main(argv) with --device set and
     its stdout captured, at users' sizes: (a) fit at config 2 twice on
@@ -3531,6 +3552,910 @@ def phase_cli(torch, dev, n_fit=8000, fit_steps=20, n_it=32768, it_steps=6,
     return gates.paths
 
 
+DIST_N4 = 32768     # config 4 / the north star: N=32768, d=8, rbf
+DIST_N_MAP = 8192   # the sharded MAP steps (cut from 32768: time)
+DIST_N_LARGE = 4096  # sample_hyperparams_large_n (cut: time)
+DIST_N5 = 100_000   # config 5: phase 5's data
+DIST_N5_FIT = 32768  # fit_iterative_sharded
+DIST_N5_SAMPLE = 4096  # the matrix-free sampler (cut: time)
+DIST_M5 = 32        # posterior test points at N5 (cut from 128: time)
+DIST_C3 = dict(n=512, chains=256, warmup=4, draws=2)  # config 3, cut
+DIST_BLOCK = 256    # block_cyclic's block at N=32768 (128 panels)
+DIST_CHUNK = 8192
+
+
+def _dist_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dist_config4(torch, dev, n=DIST_N4):
+    """config 4's data: multidim_regression(n, d=8) and phase 4's params."""
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.ops import kernels
+
+    X, y, _ = synthetic.multidim_regression(n=n, d=8, seed=0)
+    return (torch.as_tensor(X, dtype=torch.float32, device=dev),
+            torch.as_tensor(y, dtype=torch.float32, device=dev),
+            kernels.init_params(d=8, lengthscale=2.0, noise_var=1e-2,
+                                device=dev))
+
+
+def _dist_draws(chains, dim, transitions, seed=3):
+    """Config 3's replayed draws: the (C, D) initial jitter, then per
+    transition the step jitter, the momentum and the accept uniforms."""
+    rng = np.random.default_rng(seed)
+    init = rng.standard_normal((chains, dim)).astype(np.float32)
+    mom = rng.standard_normal((transitions, chains, dim)).astype(np.float32)
+    uni = rng.uniform(size=(transitions, 2, chains)).astype(np.float32)
+    return init, mom, uni
+
+
+def _dist_rank_draws(draws, lo, hi):
+    from cugp_tpu_torch.inference import hmc
+
+    init, mom, uni = draws
+    return hmc.Draws(normals=[init] + [m[lo:hi] for m in mom],
+                     uniforms=[u[k][lo:hi] for u in uni for k in range(2)])
+
+
+def _dist_grad(torch, fn, params):
+    """(value, flat gradient in ravel_pytree's order) of fn(params)."""
+    from cugp_tpu_torch.utils.params import ravel_pytree, tree_map
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    val = fn(p)
+    val.backward()
+    return float(val.detach()), ravel_pytree(
+        tree_map(lambda t: t.grad, p))[0].cpu().numpy()
+
+
+def _dist_lml64(torch, params, X, y, jitter=1e-6, rows=4096):
+    """The rbf LML and its gradient (log-space, ravel_pytree's order) in
+    float64 on the device: K built in row blocks, the library's float64
+    Cholesky and inverse (a reference only), the gradient as
+    1/2 sum((alpha alpha^T - K^-1) o dK)."""
+    import math
+
+    from cugp_tpu_torch.utils.params import ravel_pytree
+
+    X = X.double()
+    y = y.double()
+    n = X.shape[0]
+    ell = torch.exp(params["log_lengthscale"].double())
+    sf2 = torch.exp(params["log_signal_var"].double())
+    sn2 = torch.exp(params["log_noise_var"].double())
+    xs = X / ell
+
+    def kern(lo, hi):
+        d2 = torch.cdist(xs[lo:hi], xs).square_()
+        return sf2 * torch.exp(-0.5 * d2)
+
+    K = torch.empty((n, n), dtype=torch.float64, device=X.device)
+    for lo in range(0, n, rows):
+        K[lo:lo + rows] = kern(lo, lo + rows)
+    K.diagonal().add_(sn2 + jitter * sf2)
+    L = torch.linalg.cholesky(K)
+    del K
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    lml = (-0.5 * torch.dot(y, alpha) - torch.log(L.diagonal()).sum()
+           - 0.5 * n * math.log(2 * math.pi))
+    W = torch.cholesky_inverse(L)
+    del L
+    W.neg_().addr_(alpha, alpha)  # alpha alpha^T - K^-1
+    g_ell = torch.zeros_like(ell)
+    g_sf2 = torch.zeros((), dtype=torch.float64, device=X.device)
+    for lo in range(0, n, rows):
+        M = W[lo:lo + rows] * kern(lo, lo + rows)  # W o (K - diag)
+        g_sf2 += M.sum()
+        rs, cs = M.sum(1), M.sum(0)
+        # sum_ij M_ij (xs_ik - xs_jk)^2 for each dimension k
+        g_ell += ((xs[lo:lo + rows] ** 2 * rs[:, None]).sum(0)
+                  + (xs ** 2 * cs[:, None]).sum(0)
+                  - 2 * (xs[lo:lo + rows] * (M @ xs)).sum(0))
+    tr = W.diagonal().sum()
+    grads = {"log_lengthscale": 0.5 * g_ell,
+             "log_signal_var": 0.5 * (g_sf2 + jitter * sf2 * tr),
+             "log_noise_var": 0.5 * sn2 * tr}
+    return float(lml), ravel_pytree(
+        {k: grads[k] for k in params})[0].cpu().numpy()
+
+
+def _dist_references(torch, dev, work):
+    """The single-device results phase 12 holds the distributed tier
+    against, computed here before the ranks start (they share the card);
+    the large arrays go to files in `work`."""
+    import math
+
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.inference import hmc, iterative, map_opt, sampling
+    from cugp_tpu_torch.models import exact_gp
+    from cugp_tpu_torch.ops import cov_matvec_cuda, kernels
+
+    refs, t0 = {}, time.perf_counter()
+    X, y, p = _dist_config4(torch, dev)
+    refs["lml4"] = _dist_grad(
+        torch, lambda q: exact_gp.log_marginal_likelihood(q, X, y), p)
+    refs["lml4_64"] = _dist_lml64(torch, p, X, y)
+    m = DIST_N_MAP
+    pm, info = map_opt.fit(p, X[:m], y[:m], steps=2, learning_rate=0.05)
+    refs["map"] = ({k: v.cpu().numpy() for k, v in pm.items()},
+                   info["loss"].cpu().numpy())
+    nl = DIST_N_LARGE
+    lpg, unravel, q0 = sampling.make_flat_logprob(p, X[:nl], y[:nl])
+    qs = sampling.init_chains(q0, hmc.Draws(torch.Generator().manual_seed(0)),
+                              2)
+    logp, grad = lpg(qs)
+    refs["large_n"] = (qs.cpu().numpy(), logp.cpu().numpy(),
+                       grad.cpu().numpy())
+    prior = hmc.default_log_prior(qs)
+    refs["large_n_64"] = [
+        (v + float(pr), g + (-qc / 9.0).cpu().numpy())
+        for qc, pr, (v, g) in zip(qs, prior, (
+            _dist_lml64(torch, unravel(qc), X[:nl], y[:nl]) for qc in qs))]
+    del X, y
+    c3 = DIST_C3
+    Xc, yc, _ = synthetic.sinusoid_1d(n=c3["n"], noise_std=0.1, seed=0)
+    draws = _dist_draws(c3["chains"], 3, c3["warmup"] + c3["draws"])
+    out = sampling.sample_hyperparams(
+        kernels.init_params(d=1, lengthscale=0.8, noise_var=0.05,
+                            device=dev),
+        torch.as_tensor(Xc, dtype=torch.float32, device=dev),
+        torch.as_tensor(yc, dtype=torch.float32, device=dev), sampler="hmc",
+        num_chains=c3["chains"], num_samples=c3["draws"],
+        num_warmup=c3["warmup"],
+        rng=_dist_rank_draws(draws, 0, c3["chains"]))
+    lpg3, _, q3 = sampling.make_flat_logprob(
+        kernels.init_params(d=1, lengthscale=0.8, noise_var=0.05,
+                            device=dev),
+        torch.as_tensor(Xc, dtype=torch.float32, device=dev),
+        torch.as_tensor(yc, dtype=torch.float32, device=dev))
+    lp3, g3 = lpg3(sampling.init_chains(q3, hmc.Draws(normals=[draws[0]]),
+                                        c3["chains"]))
+    refs["c3_density"] = (lp3.cpu().numpy(), g3.cpu().numpy())
+    refs["c3"] = (float(out["eps"]), out["inv_mass"].cpu().numpy(),
+                  np.concatenate([out["samples"][k].reshape(
+                      c3["draws"], c3["chains"], -1).cpu().numpy()
+                      for k in sorted(out["samples"])], axis=-1))
+    # config 5: phase 5's data, the truth as params
+    X5, y5 = rff_gp_draw(DIST_N5, 4, 1.5, 1.0, math.sqrt(0.04), seed=0,
+                         device=dev)
+    np.save(os.path.join(work, "X5.npy"), X5)
+    np.save(os.path.join(work, "y5.npy"), y5)
+    p5 = kernels.init_params(d=4, lengthscale=1.5, signal_var=1.0,
+                             noise_var=0.04, device=dev)
+    X5t = torch.as_tensor(X5, device=dev)
+    y5t = torch.as_tensor(y5, device=dev)
+    V = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (DIST_N5, 9)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        u = cov_matvec_cuda.train_cov_matvec(p5, X5t, V, kind="rbf")
+    np.save(os.path.join(work, "matvec9.npy"), u.cpu().numpy())
+    Xs = np.random.default_rng(2).uniform(-3.0, 3.0, (DIST_M5, 4)).astype(
+        np.float32)
+    np.save(os.path.join(work, "Xs.npy"), Xs)
+    mu, var = iterative.posterior_iterative(
+        p5, X5t, y5t, torch.as_tensor(Xs, device=dev), tol=1e-4,
+        precond_rank=128)
+    refs["posterior5"] = (mu.cpu().numpy(), var.cpu().numpy())
+    del X5t, y5t, V, u
+    Xf, yf = X5[:DIST_N5_FIT], y5[:DIST_N5_FIT]
+    pf, info = map_opt.fit_iterative(
+        kernels.init_params(d=4, lengthscale=0.6, signal_var=0.3,
+                            noise_var=0.3, device=dev),
+        torch.as_tensor(Xf, device=dev), torch.as_tensor(yf, device=dev),
+        steps=2, learning_rate=0.15, precond_rank=128, num_probes=8,
+        tol=1e-4, max_iters=300, split_programs=True, warm_start=False,
+        generator=torch.Generator().manual_seed(0))
+    refs["fit5"] = ({k: v.cpu().numpy() for k, v in pf.items()},
+                    info["loss"].numpy(), info["cg_iters"])
+    _dist_sync(torch, dev)
+    refs["seconds"] = time.perf_counter() - t0
+    torch.save(refs, os.path.join(work, "refs.pt"))
+    return refs
+
+
+class _DistLaunches:
+    """A rank's kernel launches on the distributed path: only the calls
+    made through `counted` (references and checks are not counted)."""
+
+    def __init__(self):
+        self.counts = {name: 0 for name in _wrappers()}
+
+    def __call__(self, fn):
+        before = read_launches()
+        out = fn()
+        for k, v in read_launches().items():
+            self.counts[k] += v - before[k]
+        return out
+
+
+def _dist_timed(torch, dev, res, key, fn):
+    _dist_sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _dist_sync(torch, dev)
+    res.setdefault("wall_s", {})[key] = time.perf_counter() - t0
+    return out
+
+
+def _dist_recon(L_loc, K_loc, mesh, nb=4096):
+    """Phase 4's gate on the first nb rows: on the rank that holds them
+    (rows and columns 0..nb of the grid's first block), else None."""
+    if any(mesh.coords[a] for a in ("dp", "r", "c")):
+        return None
+    r = L_loc[:nb, :nb] @ L_loc[:nb, :nb].T - K_loc[:nb, :nb]
+    return float(r.abs().max() / K_loc[:nb, :nb].abs().max())
+
+
+def _dist_part_a(torch, dev, res, counted):
+    """One rank (NCCL, the users' layout on one card) at full size."""
+    from cugp_tpu_torch.parallel import distributed_chol, mesh as mesh_lib
+    from cugp_tpu_torch.ops import kernels
+
+    m = mesh_lib.make_mesh()
+    X, y, p = _dist_config4(torch, dev)
+    with torch.no_grad():
+        K = kernels.train_covariance(p, X)
+        L = _dist_timed(torch, dev, res, "distributed_cholesky",
+                        lambda: counted(lambda: distributed_chol
+                                        .distributed_cholesky(
+                                            K, m, chunk=DIST_CHUNK)))
+        res["recon_relerr"] = _dist_recon(L, K, m)
+    del K, L
+    res["lml"], g = _dist_timed(
+        torch, dev, res, "distributed_lml_and_grad",
+        lambda: counted(lambda: _dist_grad(
+            torch, lambda q: distributed_chol.distributed_lml(
+                q, X, y, m, chunk=DIST_CHUNK), p)))
+    res["grad"] = g.tolist()
+
+
+def _dist_part_b(torch, dev, res, counted, refs, work):
+    """Four ranks on gloo sharing one card: every distributed entry point
+    (config 4 at N=32768, config 3 chain-sharded, the large-N sampler,
+    config 5 matrix-free)."""
+    import torch.distributed as dist
+
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.inference import hmc
+    from cugp_tpu_torch.ops import cov_matvec_cuda, kernels
+    from cugp_tpu_torch.parallel import (block_cyclic, collectives,
+                                         distributed_chol, gspmd, relayout,
+                                         ring, sharded_sampling, sp_iterative)
+    from cugp_tpu_torch.parallel import mesh as mesh_lib
+    from cugp_tpu_torch.parallel.mesh import Sharding
+    from cugp_tpu_torch.utils.params import ravel_pytree
+
+    m = mesh_lib.make_mesh(dp=1)
+    collectives.reset_counts()
+    X, y, p = _dist_config4(torch, dev)
+    n = X.shape[0]
+    rows = Sharding(m, (("r", "c"), None))
+    xr = Sharding(m, (("dp", "r"), None))
+    with torch.no_grad():
+        K_rows = _dist_timed(torch, dev, res, "ring_train_covariance",
+                             lambda: counted(
+                                 lambda: ring.ring_train_covariance(
+                                     p, rows.shard(X), m, axis=("r", "c"))))
+        ref = kernels.train_covariance(p, X)[rows.slices((n, n))[0]]
+        res["ring_max_abs_err"] = float((K_rows - ref).abs().max())
+        del ref
+        K2 = _dist_timed(torch, dev, res, "row_to_2d",
+                         lambda: counted(lambda: relayout.row_to_2d(
+                             K_rows, m)))
+        back = _dist_timed(torch, dev, res, "two_d_to_row",
+                           lambda: counted(lambda: relayout.two_d_to_row(
+                               K2, m)))
+        res["relayout_bitwise"] = bool(torch.equal(back, K_rows))
+        del back, K_rows
+        L = _dist_timed(torch, dev, res, "block_cyclic_cholesky",
+                        lambda: counted(lambda: block_cyclic
+                                        .block_cyclic_cholesky(
+                                            K2, m, block=DIST_BLOCK)))
+        res["bc_recon_relerr"] = _dist_recon(L, K2, m)
+        del L
+        L = _dist_timed(torch, dev, res, "distributed_cholesky",
+                        lambda: counted(lambda: distributed_chol
+                                        .distributed_cholesky(
+                                            K2, m, chunk=DIST_CHUNK)))
+        res["dc_recon_relerr"] = _dist_recon(L, K2, m)
+        del L, K2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    res["lml"], g = _dist_timed(
+        torch, dev, res, "distributed_lml_and_grad",
+        lambda: counted(lambda: _dist_grad(
+            torch, lambda q: distributed_chol.distributed_lml(
+                q, xr.shard(X), xr.shard(y), m, chunk=DIST_CHUNK), p)))
+    res["grad"] = g.tolist()
+    # two sharded Adam steps at DIST_N_MAP rows
+    nm = DIST_N_MAP
+    step, tx = gspmd.make_map_train_step(m, chunk=2048)
+    state = tx.init(p)
+    params, losses = state.params, []
+
+    def two_steps():
+        nonlocal params, state
+        for _ in range(2):
+            params, state, loss = step(params, state, xr.shard(X[:nm]),
+                                       xr.shard(y[:nm]))
+            losses.append(float(loss))
+
+    _dist_timed(torch, dev, res, "map_train_step_x2",
+                lambda: counted(two_steps))
+    res["map_losses"] = losses
+    res["map_params"] = ravel_pytree(params)[0].detach().cpu().tolist()
+    # large N: the density of 2 chains, then 1 + 1 NUTS transitions
+    nl = DIST_N_LARGE
+    qs, _, _ = refs["large_n"]
+    Xl, yl = xr.shard(X[:nl]), xr.shard(y[:nl])
+    _, unravel = ravel_pytree(p)
+
+    def density():
+        q = torch.as_tensor(qs, device=dev).requires_grad_(True)
+        lp = torch.stack([distributed_chol.distributed_lml(
+            unravel(qc), Xl, yl, m, chunk=2048) for qc in q])
+        lp = lp + hmc.default_log_prior(q)
+        (gq,) = torch.autograd.grad(lp.sum(), q)
+        return lp.detach().cpu().numpy(), gq.cpu().numpy()
+
+    lp, gq = _dist_timed(torch, dev, res, "large_n_density",
+                         lambda: counted(density))
+    res["large_n_logp"], res["large_n_grad"] = lp.tolist(), gq.tolist()
+    out = _dist_timed(torch, dev, res, "sample_hyperparams_large_n",
+                      lambda: counted(lambda: sharded_sampling
+                                      .sample_hyperparams_large_n(
+                                          p, Xl, yl, m, chunk=2048,
+                                          num_chains=1, num_warmup=1,
+                                          num_samples=1, max_tree_depth=2,
+                                          key=0)))
+    res["large_n_draws_finite"] = bool(torch.isfinite(
+        out["samples_flat"]).all())
+    del X, y, Xl, yl
+    # config 3: 256 chains over dp=4 with the parent's draws replayed
+    c3 = DIST_C3
+    m4 = mesh_lib.make_mesh(dp=4)
+    Xc, yc, _ = synthetic.sinusoid_1d(n=c3["n"], noise_std=0.1, seed=0)
+    local = c3["chains"] // 4
+    i = m4.group("dp").index
+    draws = _dist_draws(c3["chains"], 3, c3["warmup"] + c3["draws"])
+    p3 = kernels.init_params(d=1, lengthscale=0.8, noise_var=0.05,
+                             device=dev)
+    Xc, yc = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (Xc, yc))
+    # the density of this rank's initial chains (the sampler's own)
+    from cugp_tpu_torch.inference import sampling
+
+    lpg3, _, q3 = sampling.make_flat_logprob(p3, Xc, yc)
+    q_loc = sampling.init_chains(q3, hmc.Draws(normals=[draws[0]]),
+                                 c3["chains"])[i * local:(i + 1) * local]
+    lp3, g3 = counted(lambda: lpg3(q_loc))
+    lp_ref, g_ref3 = refs["c3_density"]
+    res["c3_density_rel_err"] = float(np.max(np.abs(
+        lp3.cpu().numpy() - lp_ref[i * local:(i + 1) * local])
+        / np.abs(lp_ref[i * local:(i + 1) * local])))
+    res["c3_grad_err_of_max"] = float(np.abs(
+        g3.cpu().numpy() - g_ref3[i * local:(i + 1) * local]).max()
+        / np.abs(g_ref3).max())
+    out = _dist_timed(torch, dev, res, "sample_hyperparams_sharded_c3",
+                      lambda: counted(lambda: sharded_sampling
+                                      .sample_hyperparams_sharded(
+                                          p3, Xc, yc, m4, sampler="hmc",
+                                          num_chains=c3["chains"],
+                                          num_samples=c3["draws"],
+                                          num_warmup=c3["warmup"],
+                                          rng=_dist_rank_draws(
+                                              draws, i * local,
+                                              (i + 1) * local))))
+    res["c3_eps"] = out["eps_per_chip"].cpu().tolist()
+    res["c3_inv_mass"] = out["inv_mass_per_chip"].cpu().tolist()
+    eps_ref, im_ref, s_ref = refs["c3"]
+    res["c3_samples_max_abs_diff"] = float(np.abs(
+        out["samples_flat"].cpu().numpy() - s_ref).max())
+    # config 5: the ring over all four ranks on phase 5's data
+    axis = ("r", "c")
+    g = m.group(axis)
+    X5 = torch.as_tensor(np.load(os.path.join(work, "X5.npy")), device=dev)
+    y5 = torch.as_tensor(np.load(os.path.join(work, "y5.npy")), device=dev)
+    n5 = X5.shape[0]
+    sl = rows.slices((n5, 1))[0]
+    X5l, y5l = X5[sl], y5[sl]
+    p5 = kernels.init_params(d=4, lengthscale=1.5, signal_var=1.0,
+                             noise_var=0.04, device=dev)
+    V = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (n5, 9)).astype(np.float32), device=dev)
+    u = _dist_timed(torch, dev, res, "ring_matvec_r9",
+                    lambda: counted(lambda: sp_iterative.ring_matvec(
+                        p5, X5l, V[sl], m, axis=axis)))
+    want = torch.as_tensor(np.load(os.path.join(work, "matvec9.npy"))[
+        sl], device=dev)
+    res["ring_matvec_rel_err"] = float((u - want).abs().max()
+                                       / want.abs().max())
+    del V, u, want
+    pre = _dist_timed(torch, dev, res, "precond_factors_sharded",
+                      lambda: counted(lambda: sp_iterative
+                                      .precond_factors_sharded(
+                                          p5, X5l, m, 128, axis=axis)))
+    x, it = _dist_timed(torch, dev, res, "cg_solve_sharded",
+                        lambda: counted(lambda: sp_iterative.cg_solve_sharded(
+                            p5, X5l, y5l, m, axis=axis, tol=1e-4,
+                            max_iters=1000, precond=pre)))
+    res["cg_iters"] = int(it)
+    xg = collectives.all_gather(x, g)
+    if g.index == 0:  # the certificate, recomputed without the kernel
+        with torch.no_grad():
+            xs = X5 / torch.exp(p5["log_lengthscale"])
+            sf2 = torch.exp(p5["log_signal_var"])
+            scal = torch.stack([sf2, torch.exp(p5["log_noise_var"])
+                                + 1e-6 * sf2, torch.ones_like(sf2)])
+            r = y5 - cov_matvec_cuda.cov_matvec_plain(xs, xg[:, None], scal,
+                                                      "rbf", n5)[:, 0]
+            res["cg_rel_residual"] = float(torch.linalg.vector_norm(r)
+                                           / torch.linalg.vector_norm(y5))
+        del xs, r
+    del xg
+    Xs = torch.as_tensor(np.load(os.path.join(work, "Xs.npy")), device=dev)
+    mu, var = _dist_timed(torch, dev, res, "posterior_iterative_sharded",
+                          lambda: counted(lambda: sp_iterative
+                                          .posterior_iterative_sharded(
+                                              p5, X5l, y5l, Xs, m,
+                                              axis=axis, tol=1e-4,
+                                              precond=pre)))
+    mu_ref, var_ref = refs["posterior5"]
+    res["posterior_err_mu"] = float(np.abs(mu.cpu().numpy() - mu_ref).max())
+    res["posterior_err_var"] = float(np.abs(var.cpu().numpy()
+                                            - var_ref).max())
+    del X5, y5, X5l, y5l, pre
+    nf = DIST_N5_FIT
+    Xf = torch.as_tensor(np.load(os.path.join(work, "X5.npy"))[:nf],
+                         device=dev)
+    yf = torch.as_tensor(np.load(os.path.join(work, "y5.npy"))[:nf],
+                         device=dev)
+    sf = rows.slices((nf, 1))[0]
+    ss = rows.slices((DIST_N5_SAMPLE, 1))[0]
+    pf, info = _dist_timed(torch, dev, res, "fit_iterative_sharded_x2",
+                           lambda: counted(lambda: sp_iterative
+                                           .fit_iterative_sharded(
+                                               kernels.init_params(
+                                                   d=4, lengthscale=0.6,
+                                                   signal_var=0.3,
+                                                   noise_var=0.3,
+                                                   device=dev),
+                                               Xf[sf], yf[sf], m, axis=axis,
+                                               steps=2, learning_rate=0.15,
+                                               precond_rank=128,
+                                               num_probes=8, tol=1e-4,
+                                               max_iters=300,
+                                               generator=torch.Generator()
+                                               .manual_seed(0))))
+    res["fit5_losses"] = info["loss"].tolist()
+    res["fit5_cg_iters"] = info["cg_iters"].tolist()
+    out = _dist_timed(torch, dev, res, "sample_hyperparams_sharded_mf",
+                      lambda: counted(lambda: sp_iterative
+                                      .sample_hyperparams_sharded(
+                                          pf, Xf[:DIST_N5_SAMPLE][ss],
+                                          yf[:DIST_N5_SAMPLE][ss], m,
+                                          axis=axis, num_chains=1,
+                                          num_warmup=1,
+                                          num_samples=1, n_leapfrog=1,
+                                          tol=1e-4, max_iters=300,
+                                          num_probes=8, num_steps=16,
+                                          precond_rank=128,
+                                          rng=hmc.Draws(torch.Generator()
+                                                        .manual_seed(1)))))
+    res["mf_draws_finite"] = bool(torch.isfinite(out["samples_flat"]).all())
+    res["mf_accept"] = float(out["accept_rate"])
+    res["staged_bytes"] = dict(collectives.STAGED)
+    res["collective_calls"] = dict(collectives.CALLS)
+    dist.barrier()
+
+
+def _dist_probes(torch, dev, res, save):
+    """Two ranks on the one card: what NCCL says to a collective, then
+    what gloo does with CUDA tensors, collective by collective, without
+    the port's host staging (send/recv last: gloo may crash the process
+    there). `save` writes res after each answer."""
+    import torch.distributed as dist
+
+    t = torch.ones(1, device=dev)
+    try:
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        res["nccl_two_ranks_one_card"] = f"accepted (sum {float(t)})"
+    except (RuntimeError, dist.DistBackendError) as e:
+        res["nccl_two_ranks_one_card"] = " ".join(str(e).split())[:300]
+    save()
+    pg = dist.new_group([0, 1], backend="gloo")
+    me = dist.get_rank()
+    x = torch.arange(4.0, device=dev) + 10 * me  # rank 0: 0..3, 1: 10..13
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=pg)
+        return y, torch.arange(4.0) * 2 + 10
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0, group=pg)
+        return y, torch.arange(4.0)
+
+    def all_gather():
+        ys = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(ys, x, group=pg)
+        return torch.cat(ys), torch.cat([torch.arange(4.0),
+                                         torch.arange(4.0) + 10])
+
+    def all_to_all_single():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=pg)
+        return y, torch.arange(4.0).reshape(2, 2)[me].repeat(2) + \
+            torch.tensor([0.0, 0.0, 10.0, 10.0])
+
+    def send_recv():
+        y = torch.empty_like(x)
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - me, group=pg),
+                dist.P2POp(dist.irecv, y, 1 - me, group=pg)]):
+            w.wait()
+        return y, torch.arange(4.0) + 10 * (1 - me)
+
+    res["gloo_cuda"] = {}
+    for fn in (all_reduce, broadcast, all_gather, all_to_all_single,
+               send_recv):
+        name = fn.__name__
+        res["gloo_cuda"][name] = "crashed the process"
+        save()
+        try:
+            got, want = fn()
+            torch.cuda.synchronize()
+            time.sleep(0.5)  # gloo's I/O threads fail after the call
+            right = torch.equal(got.cpu(), want)
+            res["gloo_cuda"][name] = ("carried, values right" if right
+                                      else "carried, values WRONG")
+        except RuntimeError as e:
+            res["gloo_cuda"][name] = (
+                "refused: " + " ".join(str(e).split())[:160])
+        save()
+
+
+def _dist_rank(rank, world, part, url, backend, dev_type, work, go):
+    """A rank of phase 12 (a spawned child process): join its group, wait
+    for its turn, run its part, save what it found as JSON. An exception
+    is saved too and makes the exit code 1."""
+    import traceback
+
+    import torch
+
+    res = {"rank": rank, "part": part}
+    path = os.path.join(work, f"{part}_rank{rank}.json")
+    torch.set_num_threads(2)  # up to seven ranks share the host's cores
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from cugp_tpu_torch import runtime
+        from cugp_tpu_torch.ops import _build
+
+        if dev_type == "cuda":
+            _build.lib()  # the parent built it: load only
+        info = runtime.initialize(url, world, rank, device=dev_type,
+                                  backend=backend)
+        res["runtime"] = vars(info)
+        dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+            torch.device("cpu")
+        go.wait()
+        reset_launches()
+        counted = _DistLaunches()
+        if dev_type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        refs = torch.load(os.path.join(work, "refs.pt"), weights_only=False) \
+            if part != "probes" else None
+        t0 = time.perf_counter()
+        if part == "probes":
+            _dist_probes(torch, dev, res, lambda: _dist_save(path, res))
+        elif part == "a":
+            _dist_part_a(torch, dev, res, counted)
+        else:
+            _dist_part_b(torch, dev, res, counted, refs, work)
+        res["part_s"] = time.perf_counter() - t0
+        res["launches"] = counted.counts
+        if dev_type == "cuda":
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rc = 0
+    except BaseException:  # saved for the parent, which fails the phase
+        res["error"] = traceback.format_exc()[-3000:]
+        rc = 1
+    _dist_save(path, res)
+    os._exit(rc)
+
+
+def _dist_save(path, res):
+    with open(path + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(path + ".tmp", path)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_spawn(ctx, part, world, backend, dev_type, work, go):
+    url = f"tcp://localhost:{_free_port()}"
+    procs = [ctx.Process(target=_dist_rank, args=(
+        r, world, part, url, backend, dev_type, work, go)) for r in
+        range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _dist_join(procs, timeout):
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.1))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+    return late
+
+
+def phase_distributed(torch, dev):
+    """Phase 12: the distributed tier on the card.
+
+    (a) one rank on NCCL (the users' layout, one rank a card) at config
+    4's full size: distributed_cholesky (chunk 8192, phase 4's gate) and
+    distributed_lml with its gradient against the single-device LML;
+    beside it two ranks asking NCCL for the one card (its answer is
+    recorded, and what gloo does there with CUDA tensors, collective by
+    collective, unstaged). (b) four ranks on gloo sharing the card (CUDA
+    tensors; the
+    collectives gloo does not carry for CUDA are staged through the host
+    and counted): config 4 at N=32768 (ring covariance, the relayout
+    round trip, block-cyclic and chunked Cholesky, distributed_lml and
+    its gradient, two sharded MAP steps at N=8192), config 3's 256 chains
+    over dp=4 with the single process's draws replayed, the large-N
+    sampler at N=8192, and config 5's matrix-free ring at N=100,000 (the
+    matvec, a preconditioned CG mean solve, the posterior at 128 points),
+    fit_iterative_sharded and the matrix-free sampler at n=32768. The
+    ranks are spawned children that only load the kernel library the
+    parent built; their launches on the path are summed (the
+    "distributed" path). Times from (b) are four processes sharing one
+    card and claim no scaling.
+    """
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from cugp_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        _build.lib()
+    work = tempfile.mkdtemp(prefix="cugp_dist_")
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            say("dist", FAILED=repr(what))
+            failures.append(what)
+
+    try:
+        refs = _dist_references(torch, dev, work)
+        say("dist", part="references", seconds=f"{refs['seconds']:.3f}")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        go_probe, go_a, go_b = ctx.Event(), ctx.Event(), ctx.Event()
+        backend_a = "nccl" if dev.type == "cuda" else "gloo"
+        t0 = time.perf_counter()
+        # every rank starts now (torch's import and the card's context
+        # overlap); each group waits for its turn
+        groups = {"a": _dist_spawn(ctx, "a", 1, backend_a, dev.type, work,
+                                   go_a),
+                  "b": _dist_spawn(ctx, "b", 4, "gloo", dev.type, work,
+                                   go_b)}
+        if dev.type == "cuda":
+            groups["probes"] = _dist_spawn(ctx, "probes", 2, "nccl",
+                                           dev.type, work, go_probe)
+        go_probe.set()
+        late_probe = (_dist_join(groups["probes"], 120)
+                      if "probes" in groups else [])
+        go_a.set()
+        late = _dist_join(groups["a"], 300)
+        gate(not late, "part (a) timed out")
+        t_a = time.perf_counter() - t0
+        go_b.set()
+        late = _dist_join(groups["b"], 900)
+        gate(not late, "part (b) timed out")
+        t_b = time.perf_counter() - t0 - t_a
+        results = {}
+        for part, procs in groups.items():
+            for r, p in enumerate(procs):
+                path = os.path.join(work, f"{part}_rank{r}.json")
+                got = json.load(open(path)) if os.path.exists(path) else {}
+                results[(part, r)] = got
+                if part == "probes":
+                    continue
+                gate(p.exitcode == 0 and "error" not in got,
+                     f"part ({part}) rank {r}: exit {p.exitcode} "
+                     f"{got.get('error', '')}")
+        say("dist", part="spawn_and_a_s", seconds=f"{t_a:.3f}")
+        say("dist", part="b_s", seconds=f"{t_b:.3f}")
+        if failures:
+            return _dist_finish(failures, t_phase, work, {})
+        a = results[("a", 0)]
+        b = [results[("b", r)] for r in range(4)]
+        probe = results.get(("probes", 0), {"nccl_two_ranks_one_card":
+                                            "not run (CPU)"})
+        say("dist", nccl_two_ranks_one_card=repr(probe.get(
+            "nccl_two_ranks_one_card", "no answer")),
+            probe_exit=[p.exitcode for p in groups.get("probes", [])],
+            probe_hung=bool(late_probe))
+        say("dist", gloo_cuda_unstaged=json.dumps(probe.get("gloo_cuda")))
+        for tag, r in [("a", a)] + [(f"b{i}", x) for i, x in enumerate(b)]:
+            say("dist", rank=tag, part_s=f"{r['part_s']:.3f}",
+                peak_bytes=r.get("peak_bytes", "n/a"),
+                staged_bytes=json.dumps(r.get("staged_bytes", {})),
+                launches=json.dumps(r["launches"], separators=(",", ":")),
+                wall_s=json.dumps({k: round(v, 4) for k, v in
+                                   r["wall_s"].items()},
+                                  separators=(",", ":")))
+        lml_ref, g_ref = refs["lml4"]
+        l64, g64 = refs["lml4_64"]
+        err_single = abs(lml_ref - l64) / abs(l64)
+        gerr_single = float(np.abs(g_ref - g64).max() / np.abs(g64).max())
+
+        def lml_gates(tag, r):
+            """Against float64 (bar: twice the single-device fp32 path's
+            own error there, at least 1e-5 / 1e-4 of the largest
+            gradient component), and JAX's per-point bar against the
+            single-device LML; the ISSUE's 1e-5 reading printed."""
+            err = abs(r["lml"] - l64) / abs(l64)
+            grad = np.asarray(r["grad"])
+            gerr = float(np.abs(grad - g64).max() / np.abs(g64).max())
+            gerr_s = float(np.abs(grad - g_ref).max() / np.abs(g_ref).max())
+            say("dist", part=tag, lml=f"{r['lml']:.4f}",
+                lml_single=f"{lml_ref:.4f}", lml_float64=f"{l64:.4f}",
+                lml_rel_err_vs_float64=f"{err:.3e}",
+                single_rel_err_vs_float64=f"{err_single:.3e}",
+                grad_err_of_max_vs_float64=f"{gerr:.3e}",
+                single_grad_err_of_max_vs_float64=f"{gerr_single:.3e}",
+                lml_rel_err_vs_single=(
+                    f"{abs(r['lml'] - lml_ref) / abs(lml_ref):.3e}"),
+                grad_err_of_max_vs_single=f"{gerr_s:.3e}",
+                per_point_vs_single=(
+                    f"{abs(r['lml'] - lml_ref) / DIST_N4:.3e}"))
+            gate(err <= max(1e-5, 2 * err_single),
+                 f"({tag}) LML vs float64")
+            gate(gerr <= max(1e-4, 2 * gerr_single),
+                 f"({tag}) gradient vs float64")
+            gate(abs(r["lml"] - lml_ref) / DIST_N4 < 1e-3,
+                 f"({tag}) LML per point vs single device")
+
+        say("dist", part="a", n=DIST_N4, chunk=DIST_CHUNK,
+            t_chol_s=f"{a['wall_s']['distributed_cholesky']:.5f}",
+            recon_relerr=f"{a['recon_relerr']:.3e}",
+            lml_and_grad_s=f"{a['wall_s']['distributed_lml_and_grad']:.4f}")
+        gate(a["recon_relerr"] < 2e-4, "(a) reconstruction relerr")
+        lml_gates("a", a)
+        # (b) config 4
+        b0 = b[0]
+        ring_err = max(x["ring_max_abs_err"] for x in b)
+        say("dist", part="b_config4", n=DIST_N4,
+            ring_max_abs_err=f"{ring_err:.3e}",
+            relayout_bitwise=all(x["relayout_bitwise"] for x in b),
+            bc_recon_relerr=f"{b0['bc_recon_relerr']:.3e}",
+            dc_recon_relerr=f"{b0['dc_recon_relerr']:.3e}",
+            ranks_lml_equal=len({x["lml"] for x in b}) == 1)
+        gate(ring_err <= 1e-6, "(b) ring covariance vs train_covariance")
+        gate(all(x["relayout_bitwise"] for x in b), "(b) relayout bitwise")
+        gate(b0["bc_recon_relerr"] < 2e-4, "(b) block-cyclic recon")
+        gate(b0["dc_recon_relerr"] < 2e-4, "(b) distributed_cholesky recon")
+        gate(len({x["lml"] for x in b}) == 1, "(b) ranks' LMLs differ")
+        lml_gates("b", b0)
+        p_ref, l_ref = refs["map"]
+        from cugp_tpu_torch.utils.params import ravel_pytree
+
+        flat_ref = ravel_pytree({k: torch.as_tensor(v) for k, v in
+                                 p_ref.items()})[0].numpy()
+        map_err = float(np.abs(np.asarray(b0["map_params"]) - flat_ref).max())
+        map_same = all(x["map_params"] == b0["map_params"] for x in b)
+        say("dist", part="b_map_step", n=DIST_N_MAP, steps=2,
+            params_max_abs_err=f"{map_err:.3e}", ranks_bitwise=map_same,
+            losses=",".join(f"{v:.4f}" for v in b0["map_losses"]),
+            losses_ref=",".join(f"{v:.4f}" for v in l_ref))
+        gate(map_err <= 1e-4, "(b) MAP steps vs map_opt.fit")
+        gate(map_same, "(b) MAP params differ across ranks")
+        qs, lp_ref, gq_ref = refs["large_n"]
+        lp64 = np.asarray([v for v, _ in refs["large_n_64"]])
+        gq64 = np.stack([g for _, g in refs["large_n_64"]])
+        lp, gq = np.asarray(b0["large_n_logp"]), np.asarray(b0["large_n_grad"])
+        lp_err = float(np.max(np.abs(lp - lp64) / np.abs(lp64)))
+        gq_err = float(np.abs(gq - gq64).max() / np.abs(gq64).max())
+        lp_err_s = float(np.max(np.abs(lp_ref - lp64) / np.abs(lp64)))
+        gq_err_s = float(np.abs(gq_ref - gq64).max() / np.abs(gq64).max())
+        say("dist", part="b_large_n", n=DIST_N_LARGE, chains=2,
+            logp_rel_err_vs_float64=f"{lp_err:.3e}",
+            single_logp_rel_err_vs_float64=f"{lp_err_s:.3e}",
+            grad_err_of_max_vs_float64=f"{gq_err:.3e}",
+            single_grad_err_of_max_vs_float64=f"{gq_err_s:.3e}",
+            logp_rel_err_vs_single=(
+                f"{float(np.max(np.abs(lp - lp_ref) / np.abs(lp_ref))):.3e}"),
+            draws_finite=b0["large_n_draws_finite"])
+        gate(lp_err <= max(1e-5, 2 * lp_err_s)
+             and gq_err <= max(1e-4, 2 * gq_err_s), "(b) large-N density")
+        gate(b0["large_n_draws_finite"], "(b) large-N draws")
+        eps_ref, im_ref, _ = refs["c3"]
+        eps = np.asarray(b0["c3_eps"])
+        im = np.asarray(b0["c3_inv_mass"])
+        eps_spread = float(np.abs(eps / eps[0] - 1).max())
+        im_spread = float(np.abs(im / im[0] - 1).max())
+        d3 = max(x["c3_density_rel_err"] for x in b)
+        g3 = max(x["c3_grad_err_of_max"] for x in b)
+        say("dist", part="b_config3", chains=DIST_C3["chains"], dp=4,
+            warmup=DIST_C3["warmup"], draws=DIST_C3["draws"],
+            density_rel_err_vs_one_process=f"{d3:.3e}",
+            grad_err_of_max_vs_one_process=f"{g3:.3e}",
+            eps=",".join(f"{v:.6f}" for v in eps), eps_ref=f"{eps_ref:.6f}",
+            eps_rel_spread=f"{eps_spread:.3e}",
+            inv_mass_rel_spread=f"{im_spread:.3e}",
+            eps_rel_err_vs_one_process=f"{abs(eps[0] / eps_ref - 1):.3e}",
+            inv_mass_rel_err_vs_one_process=(
+                f"{float(np.abs(im[0] / im_ref - 1).max()):.3e}"),
+            samples_max_abs_diff=f"{b0['c3_samples_max_abs_diff']:.3e}")
+        gate(eps_spread <= 1e-6 and im_spread <= 1e-6,
+             "(b) config 3 adaptation differs across ranks")
+        gate(d3 <= 1e-5 and g3 <= 1e-4,
+             "(b) config 3 density vs one process")
+        say("dist", part="b_config5", n=DIST_N5,
+            ring_matvec_rel_err=f"{b0['ring_matvec_rel_err']:.3e}",
+            cg_iters=b0["cg_iters"],
+            cg_rel_residual=f"{b0['cg_rel_residual']:.3e}",
+            posterior_err_mu=f"{b0['posterior_err_mu']:.3e}",
+            posterior_points=DIST_M5,
+            posterior_err_var=f"{b0['posterior_err_var']:.3e}")
+        gate(b0["ring_matvec_rel_err"] <= 1e-4, "(b) ring matvec")
+        gate(b0["cg_rel_residual"] <= 10 * 1e-4, "(b) CG certificate")
+        gate(b0["posterior_err_mu"] <= 1e-3
+             and b0["posterior_err_var"] <= 1e-3, "(b) sharded posterior")
+        _, fl_ref, cg_ref = refs["fit5"]
+        fl = np.asarray(b0["fit5_losses"])
+        fit_err = float(np.abs(fl / fl_ref - 1).max())
+        say("dist", part="b_config5_fit", n=DIST_N5_FIT, steps=2,
+            sampler_n=DIST_N5_SAMPLE,
+            losses=",".join(f"{v:.4f}" for v in fl),
+            losses_ref=",".join(f"{v:.4f}" for v in fl_ref),
+            loss_rel_err=f"{fit_err:.3e}",
+            cg_iters=",".join(map(str, b0["fit5_cg_iters"])),
+            cg_iters_ref=",".join(map(str, cg_ref)),
+            mf_draws_finite=b0["mf_draws_finite"],
+            mf_accept=f"{b0['mf_accept']:.4f}")
+        gate(np.isfinite(fl).all() and fit_err <= 1e-4,
+             "(b) fit_iterative_sharded vs fit_iterative")
+        gate(b0["mf_draws_finite"], "(b) matrix-free sampler draws")
+        launches = {k: a["launches"][k] + sum(x["launches"][k] for x in b)
+                    for k in a["launches"]}
+        for name in ("cov", "potrf", "trsm"):
+            gate(launches[name] > 0,
+                 f"the {name} kernel was never launched on this path")
+        return _dist_finish(failures, t_phase, work, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _dist_finish(failures, t_phase, work, launches):
+    say("dist", launches=json.dumps(launches, separators=(",", ":")),
+        phase_s=f"{time.perf_counter() - t_phase:.3f}")
+    if failures:
+        fail(f"distributed phase: {len(failures)} gate(s) failed: "
+             f"{failures}")
+    return launches
+
+
 def profile_device(torch, tag, fn, timed_s=None):
     """fn() under torch.profiler: device time by kernel, and the host
     wall around it (its idle share is 1 - busy / wall). timed_s: the wall
@@ -3586,7 +4511,7 @@ def main(argv):
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
     phases = {int(v) for v in
-              opts.get("--phases", "0,1,2,3,4,5,6,7,8,9,10,11").split(",")}
+              opts.get("--phases", ",".join(map(str, range(13)))).split(",")}
     dev = torch.device("cuda", 0)
     phase_device(torch)
     phase_build()
@@ -3622,7 +4547,10 @@ def main(argv):
         torch.cuda.empty_cache()
     if 11 in phases:
         paths.update(phase_cli(torch, dev))
-    if phases != set(range(12)):
+    if 12 in phases:
+        torch.cuda.empty_cache()
+        paths["distributed"] = phase_distributed(torch, dev)
+    if phases != set(range(13)):
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

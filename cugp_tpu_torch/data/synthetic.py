@@ -2,8 +2,9 @@
 
 NumPy copies of the config-1 and config-2 generators, the known-GP draw,
 the padding helper, and the count, outlier and classification datasets
-of the sparse and classification models: the same seed gives the same
-arrays bit for bit as the JAX package's.
+of the sparse and classification models, and the multi-host row shard
+(``host_shard``): the same seed gives the same arrays bit for bit as the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -133,3 +134,12 @@ def gaussian_blobs(n=300, num_classes=3, d=2, spread=0.6, seed=0):
     y = np.concatenate(ys)
     perm = rng.permutation(n)
     return X[perm].astype(np.float32), y[perm].astype(np.int32)
+
+
+def host_shard(X, y, process_index, process_count):
+    """Contiguous row shard for this host (multi-host data feeding)."""
+    n = X.shape[0]
+    per = n // process_count
+    lo = process_index * per
+    hi = n if process_index == process_count - 1 else lo + per
+    return X[lo:hi], y[lo:hi]

@@ -44,7 +44,7 @@ are not ported (ROADMAP item 12).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -249,6 +249,20 @@ def _norm_rows(x, keepdim=False):
                         for c in x])
 
 
+class RowReduce(NamedTuple):
+    """How CG and Lanczos reduce over the rows of their (n, r) vectors
+    (or (B, n, r) batches): ``dot(a, b)`` the per-column sums of a * b,
+    ``norm(x)`` the per-column 2-norms. LOCAL holds every row;
+    parallel/sp_iterative's ring reduce holds this rank's rows and
+    all-reduces each partial sum."""
+
+    dot: Callable
+    norm: Callable
+
+
+LOCAL = RowReduce(lambda a, b: _sum_rows(a * b), _norm_rows)
+
+
 def precond_apply_from_factors(Lk, Lg, s2):
     """P^-1 apply from precomputed factors, via Woodbury:
     P^-1 r = (r - Lk (s2 I_k + Lk^T Lk)^-1 Lk^T r) / s2; the rank-k solve
@@ -286,21 +300,22 @@ def _cg_apply_m(precond_apply, precond_diag):
     return apply_m
 
 
-def _cg_step(matvec, apply_m, s):
+def _cg_step(matvec, apply_m, s, reduce=LOCAL):
     """One CG iteration on (n, r) or, for a batch, (B, n, r)."""
     ap = matvec(s.p)
-    denom = _sum_rows(s.p * ap)
+    denom = reduce.dot(s.p, ap)
     alpha = (s.rs / torch.where(denom == 0, 1.0, denom)).unsqueeze(-2)
     x = s.x + alpha * s.p
     r = s.r - alpha * ap
     z = apply_m(r)
-    rs_new = _sum_rows(r * z)
+    rs_new = reduce.dot(r, z)
     beta = (rs_new / torch.where(s.rs == 0, 1.0, s.rs)).unsqueeze(-2)
     p = z + beta * s.p
     return CGState(x=x, r=r, p=p, rs=rs_new, it=s.it + 1)
 
 
-def cg_init(b, precond_apply=None, precond_diag=None, x0=None, matvec=None):
+def cg_init(b, precond_apply=None, precond_diag=None, x0=None, matvec=None,
+            reduce=LOCAL):
     """Initial CGState for K x = b (b is (n, r), or (B, n, r)).
 
     x0: optional warm start (same shape as b); pays one matvec to form
@@ -314,20 +329,20 @@ def cg_init(b, precond_apply=None, precond_diag=None, x0=None, matvec=None):
             raise ValueError("cg_init(x0=...) needs the matvec for r0")
         x, r = x0, b - matvec(x0)
     z0 = apply_m(r)
-    return CGState(x=x, r=r, p=z0, rs=_sum_rows(r * z0), it=0)
+    return CGState(x=x, r=r, p=z0, rs=reduce.dot(r, z0), it=0)
 
 
 def cg_segment(matvec, state, num_iters, precond_apply=None,
-               precond_diag=None):
+               precond_diag=None, reduce=LOCAL):
     """Exactly num_iters CG iterations from `state` (no host sync)."""
     apply_m = _cg_apply_m(precond_apply, precond_diag)
     for _ in range(num_iters):
-        state = _cg_step(matvec, apply_m, state)
+        state = _cg_step(matvec, apply_m, state, reduce)
     return state
 
 
 def cg_solve(matvec, b, tol=1e-6, max_iters=1000, precond_diag=None,
-             fixed_iters=False, precond_apply=None, x0=None):
+             fixed_iters=False, precond_apply=None, x0=None, reduce=LOCAL):
     """Batched conjugate gradients for SPD systems; b is (n,) or (n, r),
     or a batch of chains (B, n, r) (matvec and precond_apply taking the
     batch).
@@ -341,43 +356,47 @@ def cg_solve(matvec, b, tol=1e-6, max_iters=1000, precond_diag=None,
     state frozen, so its iterate is its solo solve's) once its own
     columns are within tol or it reaches max_iters, the loop ends when
     every chain has stopped, and the iterations are a (B,) int tensor,
-    each chain's count (the loop ran their max).
+    each chain's count (the loop ran their max). reduce: how inner
+    products sum over the rows (RowReduce; LOCAL holds them all).
     """
     if b.ndim == 3 and not fixed_iters:
         return _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
-                                precond_apply, x0)
+                                precond_apply, x0, reduce)
     vec = b.ndim == 1
     b2 = b[:, None] if vec else b
     if x0 is not None and x0.ndim == 1:
         x0 = x0[:, None]
-    s = cg_init(b2, precond_apply, precond_diag, x0=x0, matvec=matvec)
+    s = cg_init(b2, precond_apply, precond_diag, x0=x0, matvec=matvec,
+                reduce=reduce)
     if fixed_iters:
-        s = cg_segment(matvec, s, max_iters, precond_apply, precond_diag)
+        s = cg_segment(matvec, s, max_iters, precond_apply, precond_diag,
+                       reduce)
     else:
         apply_m = _cg_apply_m(precond_apply, precond_diag)
-        bnorm = torch.clamp(torch.linalg.vector_norm(b2, dim=0), min=1e-30)
+        bnorm = torch.clamp(reduce.norm(b2), min=1e-30)
         while s.it < max_iters and bool(torch.any(
-                torch.linalg.vector_norm(s.r, dim=0) / bnorm > tol)):
-            s = _cg_step(matvec, apply_m, s)
+                reduce.norm(s.r) / bnorm > tol)):
+            s = _cg_step(matvec, apply_m, s, reduce)
     return (s.x[:, 0] if vec else s.x), s.it
 
 
 def _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
-                     precond_apply, x0):
+                     precond_apply, x0, reduce):
     """cg_solve's tolerance loop for a batch b (B, n, r): one host read
     an iteration (whether any chain is still running)."""
-    s = cg_init(b, precond_apply, precond_diag, x0=x0, matvec=matvec)
+    s = cg_init(b, precond_apply, precond_diag, x0=x0, matvec=matvec,
+                reduce=reduce)
     apply_m = _cg_apply_m(precond_apply, precond_diag)
-    bnorm = torch.clamp(_norm_rows(b), min=1e-30)
+    bnorm = torch.clamp(reduce.norm(b), min=1e-30)
     its = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
 
     def running(s, its):
-        rel = _norm_rows(s.r) / bnorm
+        rel = reduce.norm(s.r) / bnorm
         return (its < max_iters) & torch.any(rel > tol, dim=-1)
 
     run = running(s, its)
     while bool(torch.any(run)):
-        new = _cg_step(matvec, apply_m, s)
+        new = _cg_step(matvec, apply_m, s, reduce)
         m = run[:, None, None]
         s = CGState(x=torch.where(m, new.x, s.x),
                     r=torch.where(m, new.r, s.r),
@@ -396,21 +415,22 @@ def lanczos_tridiag(matvec, z, num_steps):
     return alphas[:, 0], betas[:, 0]
 
 
-def lanczos_tridiag_batched(matvec, Z, num_steps):
+def lanczos_tridiag_batched(matvec, Z, num_steps, reduce=LOCAL):
     """Lanczos for a block of start vectors Z (n, p), or (B, n, p) for a
     batch of chains: each step is ONE multi-RHS matvec, so p probes cost
     about one (the BBMM batching). Probes stay independent. Returns
-    (alphas (m, p), betas (m-1, p)), or (m, B, p) and (m-1, B, p)."""
-    q = Z / _norm_rows(Z, keepdim=True)
+    (alphas (m, p), betas (m-1, p)), or (m, B, p) and (m-1, B, p).
+    reduce: as cg_solve's."""
+    q = Z / reduce.norm(Z).unsqueeze(-2)
     q_prev = torch.zeros_like(q)
     beta_prev = torch.zeros(Z.shape[:-2] + Z.shape[-1:], dtype=Z.dtype,
                             device=Z.device)
     alphas, betas = [], []
     for _ in range(num_steps):
         v = matvec(q) - beta_prev.unsqueeze(-2) * q_prev
-        alpha = _sum_rows(q * v)
+        alpha = reduce.dot(q, v)
         v = v - alpha.unsqueeze(-2) * q
-        beta = _norm_rows(v)
+        beta = reduce.norm(v)
         q_prev, q = q, v / torch.where(beta == 0, 1.0, beta).unsqueeze(-2)
         beta_prev = beta
         alphas.append(alpha)
@@ -419,7 +439,7 @@ def lanczos_tridiag_batched(matvec, Z, num_steps):
 
 
 def slq_logdet(matvec, n, Z=None, num_probes=16, num_steps=32,
-               generator=None, device="cpu"):
+               generator=None, device="cpu", reduce=LOCAL):
     """Stochastic Lanczos quadrature estimate of log det(K).
 
     E_z[z^T log(K) z] with Rademacher probes Z (n, p) (drawn on `device`
@@ -427,10 +447,11 @@ def slq_logdet(matvec, n, Z=None, num_probes=16, num_steps=32,
     from the eigendecomposition of its Lanczos tridiagonal, batched over
     probes in float64 on the device. Z (B, n, p) with a batched matvec
     (the same probes expanded over the chains) gives a (B,) estimate.
+    reduce: as cg_solve's (Z then holds this rank's rows; n is global).
     """
     if Z is None:
         Z = rademacher(n, num_probes, device, generator)
-    alphas, betas = lanczos_tridiag_batched(matvec, Z, num_steps)
+    alphas, betas = lanczos_tridiag_batched(matvec, Z, num_steps, reduce)
     a = alphas.movedim(0, -1).to(torch.float64)   # (..., p, m)
     b = betas.movedim(0, -1).to(torch.float64)    # (..., p, m - 1)
     T = (torch.diag_embed(a) + torch.diag_embed(b, 1)

@@ -288,8 +288,8 @@ def make_nuts_kernel(logprob_and_grad, max_depth=8, chain_block=0):
 def run_nuts(q0, rng, logprob_and_grad, max_depth=8, num_warmup=256,
              num_samples=512, eps0=0.1, target_accept=0.8, psum_axis=None,
              chain_block=0):
-    """Batched-chain NUTS with the shared 3-phase adaptive driver."""
-    hmc_lib.check_psum_axis(psum_axis)
+    """Batched-chain NUTS with the shared 3-phase adaptive driver;
+    psum_axis as hmc.run_hmc's."""
     kernel = make_nuts_kernel(logprob_and_grad, max_depth, chain_block)
     out = hmc_lib.adaptive_run(hmc_lib.init_state(q0, logprob_and_grad),
                                rng, kernel, num_warmup, num_samples, eps0,

@@ -81,7 +81,15 @@ def test_dual_averaging_and_moments_match_jax():
         close(got, want)
     for reg in (True, False):
         close(hmc.moments_variance(m_t, reg), jhmc.moments_variance(m_j, reg))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # psum_axis: a group of one rank reduces over the local chains only;
+    # a bare axis name has no mesh to resolve it
+    from cugp_tpu_torch.parallel import collectives
+
+    one = collectives.Group([0], None)
+    for got, want in zip(hmc.moments_update(m_t, t(xs[0]), psum_axis=one),
+                         hmc.moments_update(m_t, t(xs[0]))):
+        assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="mesh.group"):
         hmc.moments_update(m_t, t(xs[0]), psum_axis="dp")
 
 

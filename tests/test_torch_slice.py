@@ -165,6 +165,16 @@ def test_port_never_imports_jax():
             "import cugp_tpu_torch.oracle.gpc_multiclass_np\n"
             "import cugp_tpu_torch.models.lmc, cugp_tpu_torch.oracle.lmc_np\n"
             "from cugp_tpu_torch import MultiOutputGP, MultiOutputGPQ\n"
+            "import cugp_tpu_torch.runtime\n"
+            "import cugp_tpu_torch.parallel.collectives, "
+            "cugp_tpu_torch.parallel.mesh\n"
+            "import cugp_tpu_torch.parallel.ring, "
+            "cugp_tpu_torch.parallel.relayout\n"
+            "import cugp_tpu_torch.parallel.distributed_chol, "
+            "cugp_tpu_torch.parallel.block_cyclic\n"
+            "import cugp_tpu_torch.parallel.gspmd, "
+            "cugp_tpu_torch.parallel.sharded_sampling\n"
+            "import cugp_tpu_torch.parallel.sp_iterative\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'cugp_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
