@@ -55,7 +55,9 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      mean solve's residual recomputed without the kernel) and
      log_marginal_likelihood_iterative, launch counters read around
      them; then, on the first 16,384 rows, the iterative posterior and
-     LML against the dense path;
+     LML against the dense path; the fit step's [y | z] solve at the
+     fitted params timed on both CG routes (the tolerance loop, a host
+     read an iteration; segments of 16, a host read a segment);
   6. the rest of the dense GP surface at config 2: GP(basis="linear")
      fit/predict/full_cov, GP.loo, fit(optimizer="lbfgs"),
      fit(restarts=3), the multi-output LML and posterior (8 outputs),
@@ -152,11 +154,37 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      large-N sampler at N=8192 (its density against the single-device
      one), config 5 at N=100,000 over a ring of four (the matvec at r=9
      against the matvec kernel, a preconditioned CG mean solve with
-     phase 5's certificate, the posterior at 128 points against the
-     single-device one), fit_iterative_sharded and the matrix-free
-     sampler at n=32768. `[dist]` lines: each part's wall s, each rank's
-     peak memory, staged bytes and launches, every gate's reading; the
-     ranks' launches are the path distributed (cov, potrf, TRSM).
+     phase 5's certificate, the posterior at 32 points against the
+     single-device one), fit_iterative_sharded at n=32768 and the
+     matrix-free sampler at n=4096. `[dist]` lines: each part's wall s,
+     each rank's peak memory, staged bytes and launches, every gate's
+     reading; the ranks' launches are the path distributed (cov, potrf,
+     TRSM);
+ 13. the segmented schedule, the host-built preconditioner, blocked
+     chains and the fetch-barrier timers: (a) GP.fit_iterative (1
+     step, segments of 16 CG iterations, precond_where="host"),
+     log_marginal_likelihood_iterative and predict_iterative (4 points)
+     on segments at N=262,144, d=4 (phase 5's data), gated on finite
+     losses and LML, the mean solve's residual without the kernel and
+     0 <= var <= k**; (b) on 16,384 of those rows, segments composing
+     bitwise, cg_solve_segmented bitwise the fixed-iteration cg_solve,
+     slq_logdet_segmented bitwise slq_logdet, the segmented posterior
+     against the one-call and float64 posteriors, the host and device
+     preconditioners (Lk where the pivots agree, CG counts); (c) 256
+     chains at n=2048: the density with chain_block=64 against one
+     batch (value, gradient, peak memory), one HMC transition each way
+     at eps 0.005 (each chain's energy error dH from its replayed
+     leapfrog, the chains that moved most re-run alone in float64, and
+     a gate: chains with |dH| < 0.1 take the same accept decision) and
+     one NUTS transition each way on 128 of the chains; (a) also times the
+     mean solve at the init on both CG routes; (d) the rank-Q LMC
+     posterior with segment_iters=16 against 0 at n=2048; (e) the
+     CLI's --fit.segment_iters (n=16384) and --sample.chain_block (64
+     chains at n=512, 2 + 2); (f) profiling.rtt_overhead and timed_loop
+     of the 8000^2 covariance build beside its CUDA-event time. The
+     parts' launches summed are the path segmented_and_blocked.
+`[timing]` lines give each phase's wall seconds and, after the last
+phase, all of them with their sum.
 --profile adds torch.profiler device times by kernel: 10 TRSM calls at
 each timed shape (phase 2), 3 config-2 fit steps (phase 3), one
 Cholesky at N=32768 (phase 4), one fit step at N=100,000 (phase 5), one
@@ -1498,6 +1526,15 @@ def phase_matrix_free(torch, dev, profile=False, n=100_000, n_acc=16384):
         fail("matrix-free posterior off the dense one by more than 1e-3")
     if not err_lml <= 0.05:
         fail("matrix-free LML off the dense one by more than 0.05/point")
+    # the fit step's [y | z] solve at the fitted params on both CG routes
+    from cugp_tpu_torch.inference import iterative
+
+    B = torch.cat([gp.y[:, None], iterative.rademacher(n, 8, dev)], dim=1)
+    routes = _cg_routes(torch, iterative.make_matvec(p, gp.X), B,
+                        iterative.make_pivoted_precond(p, gp.X, 128),
+                        tol=tol, max_iters=300)
+    say("matrix_free", part="cg_routes", n=n, rhs=B.shape[1], tol=tol,
+        **routes)
     if profile:  # one fit step at the fitted params
         profile_device(torch, "profile", lambda: cugp_tpu_torch.GP(
             kind="rbf", device=dev).fit_iterative(X, y, steps=1,
@@ -4456,6 +4493,636 @@ def _dist_finish(failures, t_phase, work, launches):
     return launches
 
 
+# ---- phase 13: the segmented schedule, the host-built preconditioner,
+# blocked chains and the fetch-barrier timers ----
+
+SEG_N = 262_144     # bench_fit_iterative.py's round-5 size (data: phase 5's)
+SEG_ITERS = 16      # CG iterations a segment
+SEG_TEST = 4        # (a)'s test points (cut from 8: time)
+SEG_STEPS = 1       # (a)'s fit steps (cut from 2: time)
+
+
+def _cg_routes(torch, mv, b, pre, tol, max_iters, seg=SEG_ITERS,
+               order=(0, 1, 1, 0)):
+    """One system on both CG routes, each timed by the host clock around
+    synchronized work: cg_solve (0: a host read an iteration) and
+    run_cg_segments (1: a host read a segment of `seg`), in `order`.
+    Returns say()'s fields: each route's seconds and CG iterations."""
+    from cugp_tpu_torch.inference import iterative
+
+    runs = {0: [], 1: []}
+    for route in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route:
+            _x, it, _rel = iterative.run_cg_segments(
+                mv, b, tol=tol, iters_per_program=seg, max_iters=max_iters,
+                precond_apply=pre)
+        else:
+            _x, it = iterative.cg_solve(mv, b, tol=tol, max_iters=max_iters,
+                                        precond_apply=pre)
+        torch.cuda.synchronize()
+        runs[route].append((time.perf_counter() - t0, int(it)))
+    out = {}
+    for route, name in ((0, "loop"), (1, f"segments{seg}")):
+        out[f"{name}_s"] = ",".join(f"{s:.4f}" for s, _ in runs[route])
+        out[f"{name}_iters"] = ",".join(str(i) for _, i in runs[route])
+    return out
+
+
+def _tape(hmc, generator):
+    """hmc.Draws from `generator` that keeps every draw it hands out, so
+    that a transition can be replayed on the same numbers (replay())."""
+
+    class Tape(hmc.Draws):
+        def __init__(self):
+            super().__init__(generator)
+            self.normals, self.uniforms = [], []
+
+        def normal(self, shape, device):
+            self.normals.append(super().normal(shape, device))
+            return self.normals[-1]
+
+        def uniform(self, shape, device):
+            self.uniforms.append(super().uniform(shape, device))
+            return self.uniforms[-1]
+
+        def replay(self):
+            return hmc.Draws(normals=list(self.normals),
+                             uniforms=list(self.uniforms))
+
+    return Tape()
+
+
+def _recording(fn, calls):
+    """fn, a logprob_and_grad, with each call's (q, logp, grad) kept."""
+    def run(q):
+        logp, grad = fn(q)
+        calls.append((q, logp, grad))
+        return logp, grad
+
+    return run
+
+
+def _evaluations(torch, calls, chains):
+    """The recorded calls of a (possibly blocked) log density joined into
+    whole evaluations of `chains` chains: a list of (q, logp, grad)."""
+    evals, part = [], []
+    for call in calls:
+        part.append(call)
+        if sum(c[0].shape[0] for c in part) == chains:
+            evals.append(tuple(torch.cat(x) for x in zip(*part)))
+            part = []
+    return evals
+
+
+def _rbf_logprob64(torch, X, y, dev, jitter=1e-6):
+    """The sampler's rbf log density (the exact LML plus the default
+    N(0, 3^2) prior) and its gradient in float64, plain PyTorch on dev:
+    q (B, 3) flat as the sampler's (log lengthscale, log noise variance,
+    log signal variance) -> (logp (B,), grad (B, 3)); NaN for a chain
+    whose covariance does not factor."""
+    import math
+
+    x = torch.as_tensor(X, dtype=torch.float64, device=dev).reshape(-1)
+    yv = torch.as_tensor(y, dtype=torch.float64, device=dev).reshape(-1)
+    d2 = (x[:, None] - x[None, :]) ** 2
+    eye = torch.eye(x.shape[0], dtype=torch.float64, device=dev)
+
+    def lpg(q):
+        q = q.detach().requires_grad_(True)
+        with torch.enable_grad():
+            ell, sn2, sf2 = (torch.exp(q[:, k])[:, None, None]
+                             for k in range(3))
+            K = sf2 * torch.exp(-0.5 * d2 / ell ** 2) + (sn2 + jitter
+                                                         * sf2) * eye
+            L, info = torch.linalg.cholesky_ex(K)
+            alpha = torch.cholesky_solve(yv.expand(q.shape[0], -1)[..., None],
+                                         L)[..., 0]
+            lp = (-0.5 * (yv * alpha).sum(-1)
+                  - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+                  - 0.5 * x.shape[0] * math.log(2.0 * math.pi)
+                  - 0.5 * ((q / 3.0) ** 2).sum(-1))
+            (g,) = torch.autograd.grad(lp.sum(), q)
+        bad = (info != 0) | ~torch.isfinite(lp) | ~torch.isfinite(g).all(-1)
+        return (torch.where(bad, torch.nan, lp.detach()),
+                torch.where(bad[:, None], torch.nan, g))
+
+    return lpg
+
+
+def _hmc_witness(torch, hmc, gate, state, tape, eps, inv_mass, outs, evals,
+                 lpg64, calm=0.1):
+    """What separates the blocked HMC transition from the unblocked one
+    on the same draws (phase 13(c)). Each chain's energy error dH comes
+    from its own leapfrog replayed on the transition's recorded
+    gradients (bitwise the kernel's accept probability when the replay
+    is exact). Two chains, the one whose proposal moved most between the
+    runs and the one whose accept probability did, are run again alone
+    in float64 (lpg64) from the same start, momentum and step: how far
+    each fp32 proposal lies from the float64 one tells rounding amplified
+    by the trajectory from a blocking fault. Gate: chains whose |dH| is
+    below `calm` in both runs take the same accept decision."""
+    # the kernel's draws in the order it takes them: the step jitter,
+    # the momentum, the accept uniforms
+    u_jit, mom, u_acc = tape.uniforms[0], tape.normals[0], tape.uniforms[1]
+    eps_c = eps * (1.0 + hmc.STEP_JITTER * (2.0 * u_jit - 1.0))[:, None]
+    p0 = mom / torch.sqrt(inv_mass)
+    h0 = -state.logp + hmc._kinetic(p0, inv_mass)
+    dH, ends, exact = [], [], []
+    for (new, aprob, _), run in zip(outs, evals):
+        p, grad = p0, state.grad
+        for _q, _lp, g in run:
+            p = p + 0.5 * eps_c * grad
+            grad = g
+            p = p + 0.5 * eps_c * grad
+        d = h0 - (-run[-1][1] + hmc._kinetic(p, inv_mass))
+        d = torch.where(torch.isfinite(d), d, -torch.inf)
+        exact.append(bool(torch.equal(torch.clamp(torch.exp(d), max=1.0),
+                                      aprob)))
+        dH.append(d)
+        ends.append(run[-1][0])
+    (a0, a1) = (o[1] for o in outs)
+    fin = [torch.isfinite(end).all(dim=1) for end in ends]
+    both = fin[0] & fin[1]
+    dq = torch.where(both, (ends[1] - ends[0]).abs().max(dim=1).values,
+                     torch.zeros_like(ends[0][:, 0]))
+    worst_dH = torch.maximum(dH[0].abs(), dH[1].abs())
+    still = worst_dH < calm
+    same = (u_acc < a0) == (u_acc < a1)
+    # the two chains alone in float64, from the same start and momentum
+    ws = [int(dq.argmax()), int((a1 - a0).abs().argmax())]
+    q = state.q[ws].double()
+    p = p0[ws].double()
+    e = eps_c[ws].double()
+    lp, g = lpg64(q)
+    start_rel = (lp - state.logp[ws].double()).abs() / lp.abs()
+    h64 = -lp + 0.5 * (p * p).sum(-1)
+    for _ in range(len(evals[0])):
+        p = p + 0.5 * e * g
+        q = q + e * p
+        lp, g = lpg64(q)
+        p = p + 0.5 * e * g
+    dH64 = h64 - (-lp + 0.5 * (p * p).sum(-1))
+    for k, w in enumerate(ws):
+        off = [float((end[w].double() - q[k]).abs().max()) for end in ends]
+        say("segmented", part="c_hmc_chain", eps=eps,
+            which=("most_moved", "accept_prob_moved")[k], chain=w,
+            step=f"{float(eps_c[w, 0]):.5f}", dq=f"{float(dq[w]):.3e}",
+            dH=f"{float(dH[0][w]):.4f},{float(dH[1][w]):.4f}",
+            dH_float64=f"{float(dH64[k]):.4f}",
+            accept_prob=f"{float(a0[w]):.4f},{float(a1[w]):.4f}",
+            unblocked_off_float64=f"{off[0]:.3e}",
+            blocked_off_float64=f"{off[1]:.3e}",
+            float64_start_rel=f"{float(start_rel[k]):.2e}")
+
+    def top(x):
+        return float(x.max()) if x.numel() else 0.0
+
+    say("segmented", part="c_hmc_witness", eps=eps, replay_exact=exact,
+        calm_chains=int(still.sum()), calm_max_abs_dq=f"{top(dq[still]):.3e}",
+        restless_max_abs_dq=f"{top(dq[~still]):.3e}",
+        restless_min_abs_dH=f"{-top(-worst_dH[~still]):.4f}",
+        chains_dq_over_1e_3=int((dq > 1e-3).sum()),
+        proposals_nonfinite_both=int((~fin[0] & ~fin[1]).sum()),
+        proposals_nonfinite_one_run=int((fin[0] != fin[1]).sum()),
+        decisions_equal=int(same.sum()))
+    gate(bool(same[still].all()), f"blocked HMC at eps {eps}: a chain with "
+         f"|dH| < {calm} took another accept decision than unblocked")
+
+
+def _posterior64(torch, params, X, y, Xs, jitter=1e-6):
+    """The rbf posterior mean and variance in float64 on X's device
+    (torch.linalg.cholesky as the reference)."""
+    f64 = {k: v.double() for k, v in params.items()}
+    ell, sf2 = torch.exp(f64["log_lengthscale"]), torch.exp(
+        f64["log_signal_var"])
+    sn2 = torch.exp(f64["log_noise_var"])
+    a, b = X.double() / ell, Xs.double() / ell
+
+    def k(u, v):
+        d2 = ((u * u).sum(1)[:, None] + (v * v).sum(1)[None, :]
+              - 2.0 * u @ v.T).clamp(min=0.0)
+        return sf2 * torch.exp(-0.5 * d2)
+
+    K = k(a, a)
+    K.diagonal().add_(sn2 + jitter * sf2)
+    L = torch.linalg.cholesky(K)
+    del K
+    Ks = k(a, b)
+    mu = Ks.T @ torch.cholesky_solve(y.double()[:, None], L)[:, 0]
+    V = torch.linalg.solve_triangular(L, Ks, upper=False)
+    return mu, sf2 - (V * V).sum(0)
+
+
+def phase_segmented(torch, dev, n=SEG_N, n_test=SEG_TEST,
+                    fit_steps=SEG_STEPS, n_acc=16384, n_chain=2048,
+                    chains=256, chain_block=64, nuts_chains=128,
+                    n_lmc=2048, n_cli=16384, cli_chains=64, results=None):
+    """Item 12 on the card: (a) the segmented matrix-free fit, LML and
+    predict at N=262,144 (d=4, rbf; phase 5's data) with the host-built
+    preconditioner; (b) the segmented schedule's bitwise claims and the
+    host against the device preconditioner on 16,384 rows; (c) blocked
+    chains (256 at n=2048); (d) the rank-Q LMC posterior on segments;
+    (e) the CLI's --fit.segment_iters and --sample.chain_block; (f) the
+    fetch-barrier timers. Each part's launches are counted; their sum is
+    the path "segmented_and_blocked". Cut for time (PERF.md §4): (e) at
+    n=16384 and 64 chains (from 32768 and 256), (a) at 4 test points
+    (from 8) and 1 fit step (from 2), (c)'s NUTS pair at nuts_chains
+    chains (from 256)."""
+    import contextlib
+    import io
+    import math
+
+    import cugp_tpu_torch
+    from cugp_tpu_torch.cli.__main__ import main as cli_main
+    from cugp_tpu_torch.data import synthetic
+    from cugp_tpu_torch.inference import hmc, iterative, nuts, sampling
+    from cugp_tpu_torch.models import lmc
+    from cugp_tpu_torch.ops import cov_cuda, cov_matvec_cuda, kernels
+    from cugp_tpu_torch.utils import profiling
+
+    gates = Gates(torch, "segmented")
+    gate, synced = gates.gate, gates.synced
+    t_phase = time.perf_counter()
+    d, seg, tol = 4, SEG_ITERS, 1e-4
+    truth = {"ell": 1.5, "sf2": 1.0, "sn2": 0.04}
+    t0 = time.perf_counter()
+    X, y = rff_gp_draw(n, d, truth["ell"], truth["sf2"],
+                       math.sqrt(truth["sn2"]), seed=0, device=dev)
+    Xs = np.random.default_rng(2).uniform(-3.0, 3.0, (512, d)).astype(
+        np.float32)
+    Xt, yt = (torch.as_tensor(a, device=dev) for a in (X, y))
+    say("segmented", n=n, d=d, data_s=f"{time.perf_counter() - t0:.3f}")
+    init = kernels.init_params(d=d, lengthscale=0.6, signal_var=0.3,
+                               noise_var=0.3, device=dev)
+
+    def part_a():
+        """fit (host preconditioner), LML and predict, all segmented."""
+        host = []  # the host builds the fit makes: (seconds, factors)
+        real = iterative.precond_factors_host
+
+        def timed_host(*args, **kw):
+            t0 = time.perf_counter()
+            fac = real(*args, **kw)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0, fac))
+            return fac
+
+        walls, last = [], [time.perf_counter()]
+
+        def step_wall(step, params, value, grads):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append(now - last[0])
+            last[0] = now
+
+        gp = cugp_tpu_torch.GP(kind="rbf", device=dev)
+        iterative.precond_factors_host = timed_host
+        try:
+            info = gp.fit_iterative(
+                X, y, steps=fit_steps, init=init, callback=step_wall,
+                learning_rate=0.15, precond_rank=128, num_probes=8, tol=tol,
+                max_iters=300, probe_mode="frozen", warm_start=True,
+                segment_iters=seg, precond_where="host")
+        finally:
+            iterative.precond_factors_host = real
+        cg = info["cg_iters"].tolist()
+        fac_d, dev_s = synced(lambda: iterative.precond_factors(
+            init, Xt, 128))
+        mv0 = iterative.make_matvec(init, Xt)
+        # the mean solve at the init: the host factors on both CG routes,
+        # the device factors on the tolerance loop
+        routes = _cg_routes(
+            torch, mv0, yt,
+            iterative.precond_apply_from_factors(*host[0][1]), tol=tol,
+            max_iters=1000, order=(0, 1))
+        dev_route = _cg_routes(
+            torch, mv0, yt, iterative.precond_apply_from_factors(*fac_d),
+            tol=tol, max_iters=1000, order=(0,))
+        its = {"host": int(routes["loop_iters"]),
+               "device": int(dev_route["loop_iters"])}
+        say("segmented", part="a_cg_routes", n=n, rhs=1, tol=tol,
+            **{f"host_{k}": v for k, v in routes.items()},
+            device_loop_s=dev_route["loop_s"])
+        say("segmented", part="a_fit", steps=fit_steps,
+            s_per_step=",".join(f"{w:.4f}" for w in walls),
+            first_step_less_host_build_s=f"{walls[0] - host[0][0]:.4f}",
+            cg_iters=",".join(map(str, cg)),
+            segments_per_solve=",".join(str(c // seg) for c in cg),
+            precond_host_s=",".join(f"{s:.3f}" for s, _ in host),
+            precond_device_s=f"{dev_s:.4f}",
+            mean_cg_iters_host=its["host"], mean_cg_iters_device=its["device"],
+            loss=",".join(f"{v:.4f}" for v in info["loss"].tolist()))
+        gate(all(c % seg == 0 and c > 0 for c in cg) and len(cg) == fit_steps,
+             f"segmented fit: CG counts {cg} not positive multiples of {seg}")
+        gate(bool(torch.isfinite(info["loss"]).all()),
+             "segmented fit: non-finite loss")
+        gate(len(host) >= 1, "segmented fit: the host preconditioner "
+             "was never built")
+        lml, t_lml = synced(lambda: gp.log_marginal_likelihood_iterative(
+            segment_iters=seg))
+        stats = {}
+        (mu, var), t_pred = synced(lambda: gp.predict_iterative(
+            Xs[:n_test], segment_iters=seg, col_batch=n_test, tol=tol,
+            stats=stats))
+        p = gp.params
+        xs = Xt / torch.exp(p["log_lengthscale"])
+        sf2 = torch.exp(p["log_signal_var"])
+        scal = torch.stack([sf2, torch.exp(p["log_noise_var"])
+                            + gp.jitter * sf2, torch.ones_like(sf2)])
+        res = yt - cov_matvec_cuda.cov_matvec_plain(
+            xs, stats["alpha"][:, None], scal, "rbf", n)[:, 0]
+        rel_res = float(torch.linalg.vector_norm(res)
+                        / torch.linalg.vector_norm(yt))
+        kss = float(sf2)
+        say("segmented", part="a_lml_predict", lml=f"{lml:.4f}",
+            lml_s=f"{t_lml:.4f}", predict_points=n_test,
+            predict_s=f"{t_pred:.4f}", mean_cg_iters=stats["mean_iters"],
+            var_cg_iters=",".join(map(str, stats["var_iters"])),
+            mean_rel_residual=f"{rel_res:.3e}",
+            var_range=f"{float(var.min()):.4e}..{float(var.max()):.4e}",
+            kss=f"{kss:.4f}")
+        gate(math.isfinite(lml), "segmented LML is not finite")
+        gate(bool(torch.isfinite(mu).all()) and mu.shape == (n_test,),
+             "segmented predict: mean not finite or of the wrong shape")
+        gate(rel_res <= 10 * tol, f"segmented predict: mean-solve residual "
+             f"{rel_res:.3e} over 10 tol")
+        gate(bool(((var >= 0) & (var <= kss * (1 + 1e-6))).all()),
+             "segmented predict: a variance outside [0, k**]")
+        return {k: v.detach().clone() for k, v in p.items()}
+
+    fitted, _, _ = gates.path("a_segmented_262144", part_a,
+                              launched=("cov", "trsm", "cov_matvec"))
+    del Xt, yt
+    torch.cuda.empty_cache()
+
+    def part_b():
+        """the bitwise claims, the segmented posterior and the two
+        preconditioners on the first n_acc rows, at the fitted params."""
+        Xa = torch.as_tensor(X[:n_acc], device=dev)
+        ya = torch.as_tensor(y[:n_acc], device=dev)
+        Xb = torch.as_tensor(Xs[:64], device=dev)
+        p = fitted
+        mv = iterative.make_matvec(p, Xa)
+        pre_d, t_d = synced(lambda: iterative.precond_factors(p, Xa, 128))
+        pre_h, t_h = synced(lambda: iterative.precond_factors_host(
+            p, Xa, 128))
+        apply = iterative.precond_apply_from_factors(*pre_d)
+        b = torch.stack([ya, 0.5 * ya], dim=1)
+        s0 = iterative.cg_init(b, apply)
+        two = iterative.cg_segment(mv, iterative.cg_segment(
+            mv, s0, seg, apply), 2 * seg, apply)
+        one = iterative.cg_segment(mv, s0, 3 * seg, apply)
+        compose = all(torch.equal(u, v) for u, v in zip(two[:4], one[:4]))
+        x, it, rel = iterative.cg_solve_segmented(
+            p, Xa, b, tol=1e-6, iters_per_program=seg, max_iters=1000,
+            precond=pre_d)
+        x_fix, _ = iterative.cg_solve(mv, b, fixed_iters=True, max_iters=it,
+                                      precond_apply=apply)
+        fixed = torch.equal(x, x_fix)
+        Z = iterative.rademacher(n_acc, 16, dev)
+        ld = iterative.slq_logdet(mv, n_acc, Z=Z)
+        ld_s = iterative.slq_logdet_segmented(p, Xa, n_acc, Z,
+                                              iters_per_program=seg // 2)
+        slq = torch.equal(ld, ld_s)
+        gate(compose, "cg_segment(16) then cg_segment(32) is not bitwise "
+             "cg_segment(48)")
+        gate(fixed, "cg_solve_segmented is not bitwise the fixed-iteration "
+             "cg_solve")
+        gate(slq, "slq_logdet_segmented(Z) is not bitwise slq_logdet(Z)")
+        stats = {}
+        mu_s, var_s = iterative.posterior_iterative_segmented(
+            p, Xa, ya, Xb, tol=1e-6, iters_per_program=seg, precond=pre_d,
+            col_batch=32, stats=stats)
+        mu_1, var_1 = iterative.posterior_iterative(
+            p, Xa, ya, Xb, tol=1e-6, precond=pre_d)
+        mu_64, var_64 = _posterior64(torch, p, Xa, ya, Xb)
+        errs = {"seg_vs_one_mu": float((mu_s - mu_1).abs().max()),
+                "seg_vs_one_var": float((var_s - var_1).abs().max()),
+                "seg_vs_f64_mu": float((mu_s.double() - mu_64).abs().max()),
+                "seg_vs_f64_var": float((var_s.double() - var_64).abs()
+                                        .max())}
+        piv_d, piv_h = pre_d[0].argmax(0), pre_h[0].argmax(0)
+        diff = (piv_d != piv_h).nonzero()
+        first = int(diff[0, 0]) if len(diff) else 128
+        lk_err = (float((pre_d[0][:, :first] - pre_h[0][:, :first]).abs()
+                        .max()) if first else 0.0)
+        its = {w: int(iterative.cg_solve_program(
+            p, Xa, ya, precond=f, tol=tol, max_iters=1000)[1])
+            for w, f in (("host", pre_h), ("device", pre_d))}
+        say("segmented", part="b_bitwise", n=n_acc, compose=compose,
+            fixed_iteration=fixed, slq=slq, cg_iters=it,
+            logdet=f"{float(ld):.4f}")
+        say("segmented", part="b_posterior", test_points=len(Xb),
+            mean_iters=stats["mean_iters"],
+            var_iters=",".join(map(str, stats["var_iters"])),
+            **{k: f"{v:.3e}" for k, v in errs.items()})
+        say("segmented", part="b_precond", host_s=f"{t_h:.4f}",
+            device_s=f"{t_d:.4f}", first_pivot_differing=first,
+            lk_err_before_it=f"{lk_err:.3e}", mean_cg_iters_host=its["host"],
+            mean_cg_iters_device=its["device"])
+        gate(max(errs.values()) <= 1e-3, f"segmented posterior off the "
+             f"one-call or the float64 posterior by more than 1e-3: {errs}")
+        gate(lk_err <= 1e-4, "host and device Lk differ by more than 1e-4 "
+             "where their pivots agree")
+        gate(abs(its["host"] - its["device"])
+             <= 0.1 * max(its["host"], its["device"]),
+             f"host and device preconditioners' CG counts {its} differ by "
+             "more than 10%")
+
+    gates.path("b_segments_16384", part_b, launched=("cov_matvec",))
+    torch.cuda.empty_cache()
+
+    def part_c():
+        """blocked chains: the batched density, one HMC and one NUTS
+        transition, chain_block against one batch."""
+        Xc, yc, _ = synthetic.sinusoid_1d(n=n_chain, noise_std=0.1, seed=0)
+        gpc = cugp_tpu_torch.GP(kind="rbf", device=dev).condition(
+            Xc, yc, params=kernels.init_params(d=1, lengthscale=0.8,
+                                               noise_var=0.05))
+        lp, _unravel, q0 = sampling.make_flat_logprob(gpc.params, gpc.X,
+                                                      gpc.y)
+        qs = sampling.init_chains(q0, torch.Generator().manual_seed(3),
+                                  chains)
+        evals, peaks = {}, {}
+        for cb in (0, chain_block):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            evals[cb], t_eval = synced(lambda: hmc.blocked_chains(lp, cb)(qs))
+            peaks[cb] = torch.cuda.max_memory_allocated() - base
+            say("segmented", part="c_density", chains=chains, n=n_chain,
+                chain_block=cb, eval_s=f"{t_eval:.4f}",
+                peak_bytes=peaks[cb])
+        (lp0, g0), (lp1, g1) = evals[0], evals[chain_block]
+        rel_lp = float(((lp1 - lp0).abs() / lp0.abs()).max())
+        rel_g = float((g1 - g0).abs().max() / g0.abs().max())
+        say("segmented", part="c_density", logp_rel=f"{rel_lp:.3e}",
+            grad_rel_to_max=f"{rel_g:.3e}")
+        gate(rel_lp <= 1e-5 and rel_g <= 1e-4, "blocked density off one "
+             "batch by more than 1e-5 (logp) / 1e-4 (gradient)")
+        gate(peaks[chain_block] < peaks[0], "blocked evaluation's peak "
+             "memory is not below one batch's")
+        state = hmc.HMCState(qs, lp0, g0)
+        inv_mass = torch.ones(qs.shape[1], device=dev)
+        lpg64 = _rbf_logprob64(torch, Xc, yc, dev)
+
+        def pair(name, start, kern_of, eps, rng_of):
+            outs = []
+            for cb in (0, chain_block):
+                kern = kern_of(cb)
+                out, t_tr = synced(lambda: kern(
+                    start, rng_of(cb), torch.tensor(eps, device=dev),
+                    inv_mass))
+                outs.append(out)
+                say("segmented", part=f"c_{name}", eps=eps,
+                    chains=start.q.shape[0], chain_block=cb,
+                    transition_s=f"{t_tr:.4f}")
+            (s0_, a0, _), (s1_, a1, _) = outs
+            moved0, moved1 = ((s.q != start.q).any(dim=1)
+                              for s in (s0_, s1_))
+            say("segmented", part=f"c_{name}", eps=eps,
+                moved_equal=bool(torch.equal(moved0, moved1)),
+                accept_prob_maxdiff=f"{float((a1 - a0).abs().max()):.3e}",
+                max_abs_dq=f"{float((s1_.q - s0_.q).abs().max()):.3e}",
+                moved=int(moved1.sum()))
+            gate(bool(torch.isfinite(s1_.q).all() & torch.isfinite(a1).all()),
+                 f"blocked {name} transition not finite")
+            return outs
+
+        # HMC from one tape of draws, each evaluation kept for the
+        # witness, at eps 0.005: at 0.05 every chain's |dH| was 0.86 or
+        # more from these overdispersed starts (PERF.md section 6)
+        eps = 0.005
+        tape, calls = _tape(hmc, torch.Generator().manual_seed(5)), {}
+
+        def kern_of(cb):
+            calls[cb] = []
+            return hmc.make_hmc_kernel(_recording(lp, calls[cb]), 8,
+                                       chain_block=cb)
+
+        outs = pair("hmc", state, kern_of, eps,
+                    lambda cb: tape if cb == 0 else tape.replay())
+        _hmc_witness(torch, hmc, gate, state, tape, eps, inv_mass, outs,
+                     [_evaluations(torch, calls[cb], chains)
+                      for cb in (0, chain_block)], lpg64)
+        # NUTS on the first nuts_chains chains (cut from 256: time)
+        k = nuts_chains
+        pair("nuts", hmc.HMCState(qs[:k], lp0[:k], g0[:k]),
+             lambda cb: nuts.make_nuts_kernel(lp, 4, cb), 0.05,
+             lambda cb: hmc.Draws(torch.Generator().manual_seed(5)))
+
+    gates.path("c_blocked_chains", part_c, launched=("cov", "potrf", "trsm"))
+    torch.cuda.empty_cache()
+
+    def part_d():
+        """the rank-Q LMC posterior with segment_iters 16 against 0."""
+        init_c = lmc.init_lmcq_params(d=2, p=2, kinds=LMCQ_KINDS,
+                                      lengthscale=1.2, noise_var=0.05,
+                                      seed=0, device=dev)
+        Xl, Yl = _bench_lmcq_data(n_lmc, 2, 2, seed=0)
+        model = cugp_tpu_torch.MultiOutputGPQ(kinds=LMCQ_KINDS, device=dev)
+        model.condition(Xl, Yl, params=init_c)
+        Xsl = Xl[:32] + 0.05
+        out, st = {}, {}
+        for k in (0, seg):
+            st[k] = {}
+            out[k], t_k = synced(lambda: model.predict_iterative(
+                Xsl, tol=1e-6, max_iters=LMCQ_MAX_ITERS, segment_iters=k,
+                stats=st[k]))
+            say("segmented", part="d_lmcq", n=n_lmc, segment_iters=k,
+                seconds=f"{t_k:.4f}", mean_iters=st[k]["mean_iters"],
+                var_iters=",".join(map(str, st[k]["var_iters"])))
+        err_mu = float((out[seg][0] - out[0][0]).abs().max())
+        err_var = float((out[seg][1] - out[0][1]).abs().max())
+        say("segmented", part="d_lmcq", err_mu=f"{err_mu:.3e}",
+            err_var=f"{err_var:.3e}")
+        gate(err_mu <= 1e-3 and err_var <= 1e-3, "segmented rank-Q LMC "
+             "posterior off the unsegmented one by more than 1e-3")
+
+    gates.path("d_lmcq_segmented", part_d, launched=("cov", "cov_matvec"))
+
+    def part_e():
+        """the CLI's --fit.segment_iters and --sample.chain_block."""
+        def verb(*argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([argv[0], f"--device={dev.type}", *argv[1:]])
+            objs = _json_objects(buf.getvalue())
+            return rc, objs
+
+        def finite(tree):
+            if isinstance(tree, dict):
+                return all(finite(v) for v in tree.values())
+            if isinstance(tree, list):
+                return all(finite(v) for v in tree)
+            return bool(np.isfinite(tree))
+
+        for part, argv in (
+                ("e_cli_fit", ["fit", "--fit.engine=iterative",
+                               "--data.dataset=multidim", f"--data.n={n_cli}",
+                               "--data.d=4", "--fit.steps=2",
+                               f"--fit.segment_iters={seg}"]),
+                ("e_cli_sample", ["sample", "--data.n=512",
+                                  f"--sample.num_chains={cli_chains}",
+                                  "--sample.num_warmup=2",
+                                  "--sample.num_samples=2",
+                                  "--sample.sampler=hmc",
+                                  f"--sample.chain_block={chain_block}"])):
+            (rc, objs), wall = synced(lambda: verb(*argv))
+            o = objs[0] if objs else {}
+            if "posterior" in o:  # 2 draws: R-hat has no spread to read
+                shown = {"accept_rate": o["accept_rate"],
+                         "r_hat": {k: v["r_hat"]
+                                   for k, v in o["posterior"].items()}}
+                checked = {k: [v["mean"], v["std"]]
+                           for k, v in o["posterior"].items()}
+            else:
+                shown = {k: o.get(k) for k in ("cg_iters_last", "lml")}
+                checked = o
+            say("segmented", part=part, rc=rc, wall_s=f"{wall:.3f}",
+                **{k: json.dumps(v) for k, v in shown.items()})
+            gate(rc == 0 and bool(objs) and finite(checked),
+                 f"{part}: rc {rc} or a non-finite number")
+            if "cg_iters_last" in o:
+                gate(o["cg_iters_last"] % seg == 0,
+                     f"{part}: cg_iters_last not a multiple of {seg}")
+
+    gates.path("e_cli", part_e, launched=("cov", "potrf", "trsm",
+                                          "cov_matvec"))
+
+    def part_f():
+        """rtt_overhead and timed_loop of the 8000^2 covariance build."""
+        rng = np.random.default_rng(5)
+        X1 = torch.as_tensor(rng.uniform(-2, 2, (8000, 4)),
+                             dtype=torch.float32, device=dev)
+        s = torch.tensor([1.3, 0.1, 1.0], dtype=torch.float32, device=dev)
+
+        def step(c):
+            return c[0], cov_cuda.cov_tile(c[0], c[0], s, "rbf", True, 8000,
+                                           8000)
+
+        rtt = profiling.rtt_overhead()
+        loop_s = profiling.timed_loop(step, step((X1, None)), iters=10)
+        ev_ms = cuda_ms(lambda: step((X1, None)), iters=10, reps=5)
+        p2 = ((results or {}).get("cov", {}).get("by_shape", {})
+              .get("8000x8000 d=4", {}).get("ms"))
+        say("segmented", part="f_timers", rtt_overhead_ms=f"{rtt * 1e3:.4f}",
+            timed_loop_ms=f"{loop_s * 1e3:.4f}", cuda_event_ms=f"{ev_ms:.4f}",
+            phase2_ms="not run" if p2 is None else f"{p2:.4f}")
+        gate(rtt > 0 and loop_s > 0, "the timers returned no time")
+
+    gates.path("f_timers", part_f, launched=("cov",))
+    launches = {k: sum(p[k] for p in gates.paths.values())
+                for k in _wrappers()}
+    say("segmented", phase_s=f"{time.perf_counter() - t_phase:.3f}",
+        launches=json.dumps(launches, separators=(",", ":")))
+    gates.finish("segmented phase")
+    return launches
+
+
 def profile_device(torch, tag, fn, timed_s=None):
     """fn() under torch.profiler: device time by kernel, and the host
     wall around it (its idle share is 1 - busy / wall). timed_s: the wall
@@ -4511,46 +5178,65 @@ def main(argv):
         fail(f"cannot import cugp_tpu_torch beside this script: {e}")
     opts = dict(a.split("=", 1) if "=" in a else (a, "1") for a in argv)
     phases = {int(v) for v in
-              opts.get("--phases", ",".join(map(str, range(13)))).split(",")}
+              opts.get("--phases", ",".join(map(str, range(14)))).split(",")}
     dev = torch.device("cuda", 0)
-    phase_device(torch)
-    phase_build()
+    prof = "--profile" in opts
+    walls = {}
+
+    def run(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[phase] = round(time.perf_counter() - t0, 3)
+        say("timing", of_phase=phase, wall_s=f"{walls[phase]:.3f}")
+        return out
+
+    run(0, phase_device, torch)
+    run(1, phase_build)
     results, paths = {}, {}
-    if 2 in phases:
+
+    def kernels_alone():
         phase_cov(torch, dev, results)
         phase_potrf(torch, dev, results)
-        phase_trsm(torch, dev, results, profile="--profile" in opts)
+        phase_trsm(torch, dev, results, profile=prof)
         phase_cov_matvec(torch, dev, results)
         phase_batched(torch, dev, results)
         phase_batched_matvec(torch, dev, results)
+
+    if 2 in phases:
+        run(2, kernels_alone)
     if 3 in phases:
-        paths["dense"] = phase_main(torch, dev, profile="--profile" in opts)
+        paths["dense"] = run(3, phase_main, torch, dev, profile=prof)
     if 4 in phases:
-        phase_north_star(torch, dev, profile="--profile" in opts)
+        run(4, phase_north_star, torch, dev, profile=prof)
     if 5 in phases:
-        paths["matrix_free"] = phase_matrix_free(
-            torch, dev, profile="--profile" in opts)
+        paths["matrix_free"] = run(5, phase_matrix_free, torch, dev,
+                                   profile=prof)
     if 6 in phases:
-        paths["dense_api"] = phase_dense_api(torch, dev,
-                                             profile="--profile" in opts)
+        paths["dense_api"] = run(6, phase_dense_api, torch, dev,
+                                 profile=prof)
     if 7 in phases:
-        paths["samplers"] = phase_samplers(torch, dev,
-                                           profile="--profile" in opts)
+        paths["samplers"] = run(7, phase_samplers, torch, dev, profile=prof)
     if 8 in phases:
-        paths["iterative_samplers"] = phase_iterative_sampling(
-            torch, dev, profile="--profile" in opts)
+        paths["iterative_samplers"] = run(8, phase_iterative_sampling, torch,
+                                          dev, profile=prof)
     if 9 in phases:
-        paths.update(phase_sparse_classification(
-            torch, dev, profile="--profile" in opts))
+        paths.update(run(9, phase_sparse_classification, torch, dev,
+                         profile=prof))
     if 10 in phases:
-        paths.update(phase_lmc(torch, dev, profile="--profile" in opts))
+        paths.update(run(10, phase_lmc, torch, dev, profile=prof))
         torch.cuda.empty_cache()
     if 11 in phases:
-        paths.update(phase_cli(torch, dev))
+        paths.update(run(11, phase_cli, torch, dev))
     if 12 in phases:
         torch.cuda.empty_cache()
-        paths["distributed"] = phase_distributed(torch, dev)
-    if phases != set(range(13)):
+        paths["distributed"] = run(12, phase_distributed, torch, dev)
+    if 13 in phases:
+        torch.cuda.empty_cache()
+        paths["segmented_and_blocked"] = run(13, phase_segmented, torch, dev,
+                                             results=results)
+    say("timing", walls=json.dumps(walls, separators=(",", ":")),
+        total_s=f"{sum(walls.values()):.3f}")
+    if phases != set(range(14)):
         say("done", phases=sorted(phases), note="partial run, no result")
         return 0
     print(json.dumps({"kernels": [

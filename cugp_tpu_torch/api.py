@@ -476,13 +476,22 @@ class GP:
         the (n, num_probes) Rademacher probes, drawn from `generator`
         (seed 0 by default) when not given. CG runs under the pivoted-
         Cholesky preconditioner at n >= 8192 (precond_rank="auto"; 0
-        disables it)."""
+        disables it). segment_iters k > 0: CG in segments of k
+        iterations (iterative.lml_iterative_segmented, its tolerance
+        1e-4), a float back; "auto" is 0 off a TPU, as in the JAX
+        package."""
         from cugp_tpu_torch.inference import iterative, map_opt
 
-        map_opt.check_iterative_schedule(segment_iters)
         p = self._params(params) if params is not None else self.params
         # keyed on the caller's dict: p is a new dict on every call
         pre = self._iterative_precond(precond_rank, p, key=params)
+        seg = map_opt.resolve_iterative_schedule(segment_iters)[0]
+        if seg:
+            return self._out_lml(iterative.lml_iterative_segmented(
+                p, self.X, self.y, Z=probes, generator=generator,
+                kind=self.kind, jitter=self.jitter, block=block,
+                iters_per_program=seg, num_probes=num_probes,
+                num_steps=num_steps, precond=pre))
         return self._out_lml(iterative.lml_iterative(
             p, self.X, self.y, Z=probes, kind=self.kind, jitter=self.jitter,
             block=block, num_probes=num_probes, num_steps=num_steps,
@@ -494,12 +503,22 @@ class GP:
         """Matrix-free posterior via batched CG solves (no N x N storage):
         the test columns are solved `col_batch` at a time, so memory stays
         O(n col_batch). stats: optional dict filled with the mean solve's
-        alpha and the CG counts (iterative.posterior_iterative)."""
+        alpha and the CG counts (iterative.posterior_iterative).
+        segment_iters k > 0: the segmented schedule
+        (iterative.posterior_iterative_segmented, tol at least 1e-5, as
+        in the JAX package); "auto" is 0 off a TPU."""
         from cugp_tpu_torch.inference import iterative, map_opt
 
-        map_opt.check_iterative_schedule(segment_iters)
         Xs = _as_f32(Xs, self.device)
         pre = self._iterative_precond(precond_rank, self.params)
+        seg = map_opt.resolve_iterative_schedule(segment_iters)[0]
+        if seg:
+            mu, var = iterative.posterior_iterative_segmented(
+                self.params, self.X, self.y, Xs, kind=self.kind,
+                jitter=self.jitter, block=block, tol=max(tol, 1e-5),
+                iters_per_program=seg, include_noise=include_noise,
+                precond=pre, col_batch=col_batch, stats=stats)
+            return self._out_mean(mu), self._out_var(var)
         mu, var = iterative.posterior_iterative(
             self.params, self.X, self.y, Xs, kind=self.kind,
             jitter=self.jitter, block=block, tol=tol,
@@ -989,7 +1008,8 @@ class MultiOutputGPQ:
                           segment_iters="auto", stats=None):
         """Matrix-free posterior on the joint operator: the path past the
         dense pn ceiling, everything on this model's device. segment_iters:
-        "auto" or 0 (the segmented schedule is not ported). stats: as
+        k > 0 runs CG in segments of k iterations (one host read a
+        segment); "auto" is 0, as off a TPU in the JAX package. stats: as
         lmc.posterior_lmcq_iterative's."""
         from cugp_tpu_torch.models import lmc
 

@@ -274,8 +274,11 @@ def nuts_kernel(state, rng, eps, inv_mass, logprob_and_grad, max_depth=8):
 def make_nuts_kernel(logprob_and_grad, max_depth=8, chain_block=0):
     """Batched-chain NUTS transition kernel for hmc.adaptive_run /
     sample_segment: kernel(state, rng, eps, inv_mass) -> (state,
-    accept_probs, (diverging, n_leapfrog))."""
-    hmc_lib.check_chain_block(chain_block)
+    accept_probs, (diverging, n_leapfrog)). chain_block > 0: every
+    evaluation of the lockstep tree build is blocked
+    (hmc.blocked_chains); each chain's tree and draws are those of the
+    unblocked kernel."""
+    logprob_and_grad = hmc_lib.blocked_chains(logprob_and_grad, chain_block)
 
     def kernel(state, rng, eps, inv_mass):
         state, info = nuts_kernel(state, rng, eps, inv_mass,
@@ -289,8 +292,9 @@ def run_nuts(q0, rng, logprob_and_grad, max_depth=8, num_warmup=256,
              num_samples=512, eps0=0.1, target_accept=0.8, psum_axis=None,
              chain_block=0):
     """Batched-chain NUTS with the shared 3-phase adaptive driver;
-    psum_axis as hmc.run_hmc's."""
-    kernel = make_nuts_kernel(logprob_and_grad, max_depth, chain_block)
+    psum_axis and chain_block as hmc.run_hmc's."""
+    logprob_and_grad = hmc_lib.blocked_chains(logprob_and_grad, chain_block)
+    kernel = make_nuts_kernel(logprob_and_grad, max_depth)
     out = hmc_lib.adaptive_run(hmc_lib.init_state(q0, logprob_and_grad),
                                rng, kernel, num_warmup, num_samples, eps0,
                                target_accept, psum_axis)

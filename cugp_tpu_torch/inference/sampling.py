@@ -33,7 +33,7 @@ import torch
 from cugp_tpu_torch.inference import hmc as hmc_lib
 from cugp_tpu_torch.inference import iterative
 from cugp_tpu_torch.inference import nuts as nuts_lib
-from cugp_tpu_torch.inference.map_opt import check_iterative_schedule
+from cugp_tpu_torch.inference.map_opt import resolve_iterative_schedule
 from cugp_tpu_torch.models import exact_gp
 from cugp_tpu_torch.utils import checkpoint
 from cugp_tpu_torch.utils.params import ravel_pytree
@@ -75,9 +75,12 @@ def sample_hyperparams(init_params, X, y, *, kind="rbf", jitter=1e-6,
 
     rng: a torch.Generator or hmc.Draws (the chains' initial jitter is
     drawn first, then the run's draws); None: a CPU generator
-    seeded 0. Returns dict with "samples": the params tree with
-    (num_samples, n_chains, ...) leaves in log-space, plus the sampler's
-    diagnostics.
+    seeded 0. chain_block > 0: the log density is evaluated that many
+    chains at a time (hmc.blocked_chains), which bounds the batched
+    covariance, factor and autograd graph to chain_block chains; the
+    draws and the adaptation still span every chain. Returns dict with
+    "samples": the params tree with (num_samples, n_chains, ...) leaves
+    in log-space, plus the sampler's diagnostics.
     """
     if sampler not in ("nuts", "hmc"):
         raise ValueError(f"unknown sampler: {sampler}")
@@ -214,9 +217,9 @@ def make_iterative_logprob(init_params, X, y, *, kind="rbf", jitter=1e-6,
 
 
 def _precond_factors(params, X, precond_rank, precond_where, kind, jitter):
-    check_iterative_schedule(precond_where=precond_where)
-    return iterative.precond_factors(params, X, precond_rank, kind=kind,
-                                     jitter=jitter)
+    _, where = resolve_iterative_schedule(precond_where=precond_where)
+    return iterative.build_precond(params, X, precond_rank, kind=kind,
+                                   jitter=jitter, where=where)
 
 
 def sample_hyperparams_iterative(
@@ -232,13 +235,14 @@ def sample_hyperparams_iterative(
     CG + SLQ instead of a dense Cholesky (make_iterative_logprob): K is
     never formed, so the hyperparameter posterior is reachable at n =
     32k-100k+ on one card. precond_rank > 0 builds pivoted-Cholesky
-    factors ONCE at init_params on the device (precond_where "host"
-    raises: ROADMAP item 12) and reuses them for every transition. rng:
-    a torch.Generator or hmc.Draws (the chains' initial jitter first,
-    then the run's draws); None: a CPU generator seeded 0.
+    factors ONCE at init_params (on the device, or with precond_where
+    "host" in NumPy float64: iterative.precond_factors_host) and reuses
+    them for every transition. chain_block > 0 evaluates the density
+    that many chains at a time (hmc.blocked_chains). rng: a
+    torch.Generator or hmc.Draws (the chains' initial jitter first, then
+    the run's draws); None: a CPU generator seeded 0.
     Returns the sample_hyperparams dict plus "samples_flat".
     """
-    hmc_lib.check_chain_block(chain_block)
     if sampler not in ("nuts", "hmc"):
         raise ValueError(f"unknown sampler: {sampler}")
     precond = (_precond_factors(init_params, X, precond_rank, precond_where,
@@ -250,7 +254,7 @@ def sample_hyperparams_iterative(
     draws = hmc_lib.as_draws(rng, X.device)
     qs0 = init_chains(q0, draws, num_chains)
     kw = dict(num_warmup=num_warmup, num_samples=num_samples, eps0=eps0,
-              target_accept=target_accept)
+              target_accept=target_accept, chain_block=chain_block)
     if sampler == "nuts":
         out = nuts_lib.run_nuts(qs0, draws, logprob_and_grad,
                                 max_depth=max_tree_depth, **kw)
@@ -304,7 +308,11 @@ def sample_hyperparams_checkpointed(
     refresh_factor x the best count since the factors were built, the
     factors are rebuilt there. The factors and that best count are
     checkpointed (leaves pre_lk, pre_lg, pre_s2, cg_best), so resume is
-    exact. A checkpoint of one engine refuses to resume with the other.
+    exact (precond_where "host" builds them in NumPy float64). A
+    checkpoint of one engine refuses to resume with the other.
+    chain_block > 0 evaluates the density that many chains at a time
+    (hmc.blocked_chains), the initial evaluation and any recompute at
+    resume included.
     The checkpoint records a fingerprint of its probes
     (``probe_digest``). A checkpoint taken under other probes (the JAX
     package's, drawn from its key(7), which the port cannot redraw; or
@@ -319,7 +327,6 @@ def sample_hyperparams_checkpointed(
     """
     if engine not in ("dense", "iterative"):
         raise ValueError(f"unknown engine {engine!r}: dense | iterative")
-    hmc_lib.check_chain_block(chain_block)
     if sampler not in ("nuts", "hmc"):
         raise ValueError(f"unknown sampler: {sampler}")
     dev = X.device
@@ -339,20 +346,20 @@ def sample_hyperparams_checkpointed(
 
     def make_lp(pre):
         if engine == "dense":
-            return make_flat_logprob(init_params, X, y, kind=kind,
-                                     jitter=jitter, method=method,
-                                     log_prior=log_prior)
-        return make_iterative_logprob(
-            init_params, X, y, kind=kind, jitter=jitter, block=block,
-            tol=cg_tol, max_iters=cg_max_iters, num_probes=num_probes,
-            num_steps=num_steps, Z=Z, precond=pre, log_prior=log_prior)
+            lp, unravel, q0 = make_flat_logprob(
+                init_params, X, y, kind=kind, jitter=jitter, method=method,
+                log_prior=log_prior)
+        else:
+            lp, unravel, q0 = make_iterative_logprob(
+                init_params, X, y, kind=kind, jitter=jitter, block=block,
+                tol=cg_tol, max_iters=cg_max_iters, num_probes=num_probes,
+                num_steps=num_steps, Z=Z, precond=pre, log_prior=log_prior)
+        return hmc_lib.blocked_chains(lp, chain_block), unravel, q0
 
     def make_kernel(lp):
         if sampler == "hmc":
-            return hmc_lib.make_hmc_kernel(lp, n_leapfrog,
-                                           chain_block=chain_block)
-        return nuts_lib.make_nuts_kernel(lp, max_tree_depth,
-                                         chain_block=chain_block)
+            return hmc_lib.make_hmc_kernel(lp, n_leapfrog)
+        return nuts_lib.make_nuts_kernel(lp, max_tree_depth)
 
     def diagnostic(at_params, pre):
         return cg_diagnostic(at_params, pre, X, y, kind=kind, jitter=jitter,

@@ -296,17 +296,6 @@ def test_cli_usage_errors_exit_2(argv):
     assert "python -m cugp_tpu_torch.cli fit" in err
 
 
-@pytest.mark.parametrize("argv", [
-    ["fit", "--fit.engine=iterative", "--fit.segment_iters=16"],
-    ["sample", "--sample.chain_block=2", "--sample.num_samples=4"]],
-    ids=["segment_iters", "chain_block"])
-def test_cli_tunnel_flags_raise(argv):
-    """The JAX CLI's TPU-tunnel layouts reach the facades, which raise
-    naming ROADMAP item 12."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(torch_main, argv + ["--device=cpu", "--data.n=32"])
-
-
 def test_cli_bad_kind_is_a_value_error():
     with pytest.raises(ValueError, match="banana"):
         run(torch_main, ["fit", "--device=cpu", "--model.kind=banana",

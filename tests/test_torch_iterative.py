@@ -523,20 +523,6 @@ def test_precond_cache_keyed_on_the_callers_dict(problem, monkeypatch):
     assert len(builds) == 2
 
 
-def test_unported_arguments_raise(problem):
-    """The tunnel workarounds raise NotImplementedError naming their
-    ROADMAP item."""
-    X, y, P = problem
-    gp = cugp_tpu_torch.GP(kind="rbf", device="cpu").condition(X, y,
-                                                               params=P)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gp.predict_iterative(X[:4], segment_iters=16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gp.log_marginal_likelihood_iterative(segment_iters=16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gp.fit_iterative(X, y, steps=1, precond_where="host")
-
-
 def test_gp_defaults_to_the_card():
     """GP runs on "cuda" unless the caller asks for the CPU."""
     assert cugp_tpu_torch.GP(kind="rbf").device.type == "cuda"

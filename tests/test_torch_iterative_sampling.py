@@ -315,12 +315,6 @@ def test_iterative_sampler_output_matches_jax():
         else:
             assert tuple(np.shape(out[k])) == tuple(np.shape(out_j[k])), k
     assert torch.isfinite(out["samples_flat"]).all()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sampling.sample_hyperparams_iterative(p, t(X), t(y), precond_rank=4,
-                                              precond_where="host", **kw)
-    with pytest.raises(NotImplementedError, match="chain_block"):
-        sampling.sample_hyperparams_iterative(p, t(X), t(y), chain_block=2,
-                                              **kw)
 
 
 def test_default_random_streams_are_drawn_on_the_cpu(monkeypatch):

@@ -462,18 +462,6 @@ def test_lmcq_cg_iterations_match_jax(lmcq_bench, route, monkeypatch):
     assert res_t <= 1e-3 and res_j <= 1e-3
 
 
-def test_segmented_schedule_is_refused_and_names_item_12(lmcq):
-    """segment_iters other than 0/"auto" is TPU-tunnel code, not ported."""
-    m = cugp_tpu_torch.MultiOutputGPQ(kinds=lmcq["kinds"], device="cpu")
-    m.condition(lmcq["X"], lmcq["Y"], params=lmcq["pt"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        m.predict_iterative(lmcq["Xs"], segment_iters=16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        lmc.posterior_lmcq_iterative(lmcq["pt"], t(lmcq["X"]),
-                                     t(lmcq["Y"]), t(lmcq["Xs"]),
-                                     lmcq["kinds"], segment_iters=9)
-
-
 # ---- facades, params, init ----
 
 

@@ -492,8 +492,6 @@ def test_gp_sample_hyperparams_matches_jax_structure(gps, sampler):
     assert _structure(out_t) == _structure(out_j)
     for leaf in jax.tree.leaves(out_t["samples"]):
         assert torch.isfinite(leaf).all()
-    with pytest.raises(NotImplementedError, match="chain_block"):
-        gp_t.sample_hyperparams(chain_block=4, **kw)
 
 
 def test_gp_fit_vi_matches_jax_structure(gps):
