@@ -22,6 +22,7 @@ import torch
 
 from cugp_tpu_torch.models import exact_gp
 from cugp_tpu_torch.ops import kernels as kernel_ops
+from cugp_tpu_torch.utils import profiling
 from cugp_tpu_torch.utils.params import tree_map
 
 
@@ -96,8 +97,9 @@ class GP:
             raise ValueError(f"y must be (n,) matching X (n={X.shape[0]}), "
                              f"got {tuple(y.shape)}")
         if self.normalize_y:
-            self.y_mean = float(torch.mean(y))
-            self.y_std = max(float(torch.std(y, correction=0)), 1e-12)
+            self.y_mean = profiling.read_float(torch.mean(y), "normalize_y")
+            self.y_std = max(profiling.read_float(
+                torch.std(y, correction=0), "normalize_y"), 1e-12)
             y = (y - self.y_mean) / self.y_std
         return X, y
 
@@ -196,41 +198,43 @@ class GP:
         """Posterior mean/variance at Xs, in test batches of `batch` rows
         against one factorization (full_cov: the full covariance). With a
         basis the semiparametric corrections apply (one batch) and the
-        fitted coefficients land in self.beta."""
-        Xs = _as_f32(Xs, self.device)
-        if full_cov and include_noise:
-            raise ValueError("full_cov returns the latent posterior "
-                             "covariance; include_noise applies to the "
-                             "diagonal path only")
-        if self.basis is not None:
-            if full_cov:
-                mu, cov, self.beta = exact_gp.posterior_basis_full_cov(
+        fitted coefficients land in self.beta. The call is the root span
+        ``cugp.request``."""
+        with profiling.span("cugp.request", self.device, root=True):
+            Xs = _as_f32(Xs, self.device)
+            if full_cov and include_noise:
+                raise ValueError("full_cov returns the latent posterior "
+                                 "covariance; include_noise applies to the "
+                                 "diagonal path only")
+            if self.basis is not None:
+                if full_cov:
+                    mu, cov, self.beta = exact_gp.posterior_basis_full_cov(
+                        self.params, self.X, self.y, Xs, kind=self.kind,
+                        jitter=self.jitter, method=self.method,
+                        basis=self.basis)
+                    return self._out_mean(mu), self._out_var(cov)
+                mu, var, self.beta = exact_gp.posterior_basis(
                     self.params, self.X, self.y, Xs, kind=self.kind,
-                    jitter=self.jitter, method=self.method,
-                    basis=self.basis)
+                    jitter=self.jitter, method=self.method, basis=self.basis,
+                    include_noise=include_noise)
+                return self._out_mean(mu), self._out_var(var)
+            if full_cov:
+                mu, cov = exact_gp.posterior_full_cov(
+                    self.params, self.X, self.y, Xs, kind=self.kind,
+                    jitter=self.jitter, method=self.method)
                 return self._out_mean(mu), self._out_var(cov)
-            mu, var, self.beta = exact_gp.posterior_basis(
-                self.params, self.X, self.y, Xs, kind=self.kind,
-                jitter=self.jitter, method=self.method, basis=self.basis,
-                include_noise=include_noise)
-            return self._out_mean(mu), self._out_var(var)
-        if full_cov:
-            mu, cov = exact_gp.posterior_full_cov(
-                self.params, self.X, self.y, Xs, kind=self.kind,
-                jitter=self.jitter, method=self.method)
-            return self._out_mean(mu), self._out_var(cov)
-        L, alpha = exact_gp._factorize(self.params, self.X, self.y,
-                                       self.kind, self.jitter, self.method)
-        mus, vars_ = [], []
-        for lo in range(0, Xs.shape[0], batch):
-            mu, var = exact_gp.predict_from_factor(
-                self.params, self.X, L, alpha, Xs[lo:lo + batch],
-                kind=self.kind, method=self.method,
-                include_noise=include_noise)
-            mus.append(mu)
-            vars_.append(var)
-        return (self._out_mean(torch.cat(mus)),
-                self._out_var(torch.cat(vars_)))
+            L, alpha = exact_gp._factorize(self.params, self.X, self.y,
+                                           self.kind, self.jitter, self.method)
+            mus, vars_ = [], []
+            for lo in range(0, Xs.shape[0], batch):
+                mu, var = exact_gp.predict_from_factor(
+                    self.params, self.X, L, alpha, Xs[lo:lo + batch],
+                    kind=self.kind, method=self.method,
+                    include_noise=include_noise)
+                mus.append(mu)
+                vars_.append(var)
+            return (self._out_mean(torch.cat(mus)),
+                    self._out_var(torch.cat(vars_)))
 
     @torch.no_grad()
     def sample_posterior(self, Xs, num_samples=8, generator=None,

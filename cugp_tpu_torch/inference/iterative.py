@@ -61,6 +61,7 @@ from cugp_tpu_torch.ops import cov_cuda, cov_matvec_cuda
 from cugp_tpu_torch.ops import kernels as kernel_ops
 from cugp_tpu_torch.ops import trsm as trsm_ops
 from cugp_tpu_torch.ops.kernels import _bcast
+from cugp_tpu_torch.utils import profiling
 from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -306,11 +307,13 @@ def precond_factors_host(params, X, rank, kind="rbf", jitter=1e-6,
 def build_precond(params, X, rank, kind="rbf", jitter=1e-6, where="device",
                   verbose=False):
     """(Lk, Lg, s2) built where `where` says: "host"
-    (precond_factors_host), else on the device (precond_factors)."""
-    if where == "host":
-        return precond_factors_host(params, X, rank, kind=kind,
-                                    jitter=jitter, verbose=verbose)
-    return precond_factors(params, X, rank, kind=kind, jitter=jitter)
+    (precond_factors_host), else on the device (precond_factors); the
+    span ``cugp.precond_build``."""
+    with profiling.span("cugp.precond_build", X.device):
+        if where == "host":
+            return precond_factors_host(params, X, rank, kind=kind,
+                                        jitter=jitter, verbose=verbose)
+        return precond_factors(params, X, rank, kind=kind, jitter=jitter)
 
 
 def _sum_rows(x):
@@ -441,27 +444,30 @@ def cg_solve(matvec, b, tol=1e-6, max_iters=1000, precond_diag=None,
     columns are within tol or it reaches max_iters, the loop ends when
     every chain has stopped, and the iterations are a (B,) int tensor,
     each chain's count (the loop ran their max). reduce: how inner
-    products sum over the rows (RowReduce; LOCAL holds them all).
+    products sum over the rows (RowReduce; LOCAL holds them all). The
+    whole solve is the span ``cugp.cg_solve``; the tolerance test is one
+    host read an iteration (``host_read.cg_converged``).
     """
-    if b.ndim == 3 and not fixed_iters:
-        return _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
-                                precond_apply, x0, reduce)
-    vec = b.ndim == 1
-    b2 = b[:, None] if vec else b
-    if x0 is not None and x0.ndim == 1:
-        x0 = x0[:, None]
-    s = cg_init(b2, precond_apply, precond_diag, x0=x0, matvec=matvec,
-                reduce=reduce)
-    if fixed_iters:
-        s = cg_segment(matvec, s, max_iters, precond_apply, precond_diag,
-                       reduce)
-    else:
-        apply_m = _cg_apply_m(precond_apply, precond_diag)
-        bnorm = torch.clamp(reduce.norm(b2), min=1e-30)
-        while s.it < max_iters and bool(torch.any(
-                reduce.norm(s.r) / bnorm > tol)):
-            s = _cg_step(matvec, apply_m, s, reduce)
-    return (s.x[:, 0] if vec else s.x), s.it
+    with profiling.span("cugp.cg_solve", b.device):
+        if b.ndim == 3 and not fixed_iters:
+            return _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
+                                    precond_apply, x0, reduce)
+        vec = b.ndim == 1
+        b2 = b[:, None] if vec else b
+        if x0 is not None and x0.ndim == 1:
+            x0 = x0[:, None]
+        s = cg_init(b2, precond_apply, precond_diag, x0=x0, matvec=matvec,
+                    reduce=reduce)
+        if fixed_iters:
+            s = cg_segment(matvec, s, max_iters, precond_apply, precond_diag,
+                           reduce)
+        else:
+            apply_m = _cg_apply_m(precond_apply, precond_diag)
+            bnorm = torch.clamp(reduce.norm(b2), min=1e-30)
+            while s.it < max_iters and profiling.read_bool(torch.any(
+                    reduce.norm(s.r) / bnorm > tol), "cg_converged"):
+                s = _cg_step(matvec, apply_m, s, reduce)
+        return (s.x[:, 0] if vec else s.x), s.it
 
 
 def _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
@@ -479,7 +485,7 @@ def _cg_solve_chains(matvec, b, tol, max_iters, precond_diag,
         return (its < max_iters) & torch.any(rel > tol, dim=-1)
 
     run = running(s, its)
-    while bool(torch.any(run)):
+    while profiling.read_bool(torch.any(run), "cg_converged"):
         new = _cg_step(matvec, apply_m, s, reduce)
         m = run[:, None, None]
         s = CGState(x=torch.where(m, new.x, s.x),
@@ -748,7 +754,7 @@ def hutchinson_grads_program(params, X, alpha, w, z, kind="rbf",
     alpha, w, z = alpha.detach(), w.detach(), z.detach()
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     leaves = tree_leaves(p)
-    with torch.enable_grad():
+    with profiling.span("cugp.grad_sweep", X.device), torch.enable_grad():
         est = hutchinson_estimator(p, X, alpha, w, z, kind=kind,
                                    jitter=jitter, block=block)
         grads = torch.autograd.grad(est, leaves, allow_unused=True)

@@ -29,6 +29,7 @@ import torch
 
 from cugp_tpu_torch.inference._lbfgs import LBFGS
 from cugp_tpu_torch.models import exact_gp
+from cugp_tpu_torch.utils import profiling
 from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 
 
@@ -100,8 +101,9 @@ class FiniteGuard:
 
     def apply(self, grads):
         """Whether this step's update is applied (one host read)."""
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads]).all())
+        finite = profiling.read_bool(
+            torch.stack([torch.isfinite(g).all() for g in grads]).all(),
+            "finite_guard")
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         return finite or self.notfinite_count > self.max_consecutive_errors
 
@@ -133,21 +135,22 @@ def adam_fit(trainables, loss_fn, *, steps, learning_rate,
     guard = FiniteGuard(max_consecutive_errors)
     losses = []
     for step in range(steps):
-        opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = loss_fn(tr, step)
-            loss.backward()
-        losses.append(loss.detach())
-        for p in leaves:  # a leaf the loss does not reach: zero gradient
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in leaves]
-        if guard.apply(grads):
-            if grad_clip is not None:
-                clip_by_global_norm_(grads, grad_clip)
-            opt.step()
-        if clamp:
-            _clamp(tr)
+        with profiling.span("cugp.step", leaves[0].device, root=True):
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                loss = loss_fn(tr, step)
+                loss.backward()
+            losses.append(loss.detach())
+            for p in leaves:  # a leaf the loss does not reach: zero grad
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in leaves]
+            if guard.apply(grads):
+                if grad_clip is not None:
+                    clip_by_global_norm_(grads, grad_clip)
+                opt.step()
+            if clamp:
+                _clamp(tr)
     return tree_map(lambda t: t.detach(), tr), torch.stack(losses)
 
 
@@ -470,74 +473,78 @@ def fit_iterative(init_params, X, y, *, kind="rbf", jitter=1e-6, steps=50,
     need_rebuild = False
     prev_sol = None            # previous step's [y | z] solution
     for step in range(start_step, steps):
-        if precond_rank and (precond is None or need_rebuild
-                             or (not adaptive_refresh
-                                 and step % precond_refresh == 0
-                                 and step > start_step)):
-            precond = iterative.build_precond(
-                params, X, precond_rank, kind=kind, jitter=jitter,
-                where=precond_where, verbose=verbose)
-            rebuilds += 1
-            best_since = float("inf")
-            need_rebuild = False
-        z = probes if probe_mode == "frozen" else iterative.rademacher(
-            n, num_probes, X.device, generator)
-        if split_programs:
-            B = torch.cat([y[:, None], z], dim=1)
-            x0 = None
-            if warm_start and prev_sol is not None:
-                x0 = prev_sol
-                if probe_mode == "fresh":
-                    # probes changed: only the y column warms up
-                    x0 = torch.cat([prev_sol[:, :1],
-                                    torch.zeros_like(prev_sol[:, 1:])], 1)
-            if segment_iters:
-                sol, it, _rel = iterative.cg_solve_segmented(
-                    params, X, B, precond=precond, kind=kind, jitter=jitter,
-                    block=block, tol=tol, iters_per_program=segment_iters,
-                    max_iters=max_iters, x0=x0, verbose=verbose)
+        with profiling.span("cugp.step", X.device, root=True):
+            if precond_rank and (precond is None or need_rebuild
+                                 or (not adaptive_refresh
+                                     and step % precond_refresh == 0
+                                     and step > start_step)):
+                precond = iterative.build_precond(
+                    params, X, precond_rank, kind=kind, jitter=jitter,
+                    where=precond_where, verbose=verbose)
+                rebuilds += 1
+                best_since = float("inf")
+                need_rebuild = False
+            z = probes if probe_mode == "frozen" else iterative.rademacher(
+                n, num_probes, X.device, generator)
+            if split_programs:
+                B = torch.cat([y[:, None], z], dim=1)
+                x0 = None
+                if warm_start and prev_sol is not None:
+                    x0 = prev_sol
+                    if probe_mode == "fresh":
+                        # probes changed: only the y column warms up
+                        x0 = torch.cat([prev_sol[:, :1], torch.zeros_like(
+                            prev_sol[:, 1:])], 1)
+                if segment_iters:
+                    sol, it, _rel = iterative.cg_solve_segmented(
+                        params, X, B, precond=precond, kind=kind,
+                        jitter=jitter, block=block, tol=tol,
+                        iters_per_program=segment_iters,
+                        max_iters=max_iters, x0=x0, verbose=verbose)
+                else:
+                    sol, it = iterative.cg_solve_program(
+                        params, X, B, precond=precond, kind=kind,
+                        jitter=jitter, block=block, tol=tol,
+                        max_iters=max_iters, x0=x0)
+                if warm_start:
+                    prev_sol = sol
+                alpha, w = sol[:, 0], sol[:, 1:]
+                grads = iterative.hutchinson_grads_program(
+                    params, X, alpha, w, z, kind=kind, jitter=jitter,
+                    block=block)
+                value = -0.5 * torch.dot(y, alpha)
             else:
-                sol, it = iterative.cg_solve_program(
-                    params, X, B, precond=precond, kind=kind, jitter=jitter,
-                    block=block, tol=tol, max_iters=max_iters, x0=x0)
-            if warm_start:
-                prev_sol = sol
-            alpha, w = sol[:, 0], sol[:, 1:]
-            grads = iterative.hutchinson_grads_program(
-                params, X, alpha, w, z, kind=kind, jitter=jitter,
-                block=block)
-            value = -0.5 * torch.dot(y, alpha)
-        else:
-            value, grads = iterative.lml_value_and_grad_iterative(
-                params, X, y, z=z, kind=kind, jitter=jitter, block=block,
-                tol=tol, max_iters=max_iters, num_probes=num_probes,
-                precond=precond, grad_method=grad_method)
-            it = -1  # fused call: count not kept
-        if log_prior is not None:
-            pv, pg = _value_and_grad(log_prior, params)
-            value = value + pv
-            grads = _tree_add(grads, pg)
-        if it >= 0:
-            cg_iters.append(it)
-            if adaptive_refresh and precond_rank:
-                if it > refresh_factor * best_since:
-                    need_rebuild = True
-                best_since = min(best_since, it)
-        # maximize: Adam minimizes, so it gets the negated gradients
-        for p, g in zip(leaves, tree_leaves(grads)):
-            p.grad = -g
-        opt.step()
-        _clamp(params)
-        loss = -float(value)
-        losses.append(loss)
-        if checkpoint_dir and (step + 1) % checkpoint_every == 0:
-            save_state(step + 1)
-        if callback is not None:
-            callback(step, params, float(value), grads)
-        if verbose:
-            it_msg = f" cg_it={it}" if it >= 0 else ""
-            print(f"# fit_iterative step {step}: quad-obj={-loss:.4f}"
-                  f"{it_msg}", file=sys.stderr, flush=True)
+                value, grads = iterative.lml_value_and_grad_iterative(
+                    params, X, y, z=z, kind=kind, jitter=jitter,
+                    block=block, tol=tol, max_iters=max_iters,
+                    num_probes=num_probes, precond=precond,
+                    grad_method=grad_method)
+                it = -1  # fused call: count not kept
+            if log_prior is not None:
+                pv, pg = _value_and_grad(log_prior, params)
+                value = value + pv
+                grads = _tree_add(grads, pg)
+            if it >= 0:
+                cg_iters.append(it)
+                if adaptive_refresh and precond_rank:
+                    if it > refresh_factor * best_since:
+                        need_rebuild = True
+                    best_since = min(best_since, it)
+            # maximize: Adam minimizes, so it gets the negated gradients
+            for p, g in zip(leaves, tree_leaves(grads)):
+                p.grad = -g
+            opt.step()
+            _clamp(params)
+            loss = -profiling.read_float(value, "fit_iterative_value")
+            losses.append(loss)
+            if checkpoint_dir and (step + 1) % checkpoint_every == 0:
+                save_state(step + 1)
+            if callback is not None:
+                callback(step, params, -loss, grads)
+            if verbose:
+                it_msg = f" cg_it={it}" if it >= 0 else ""
+                print(f"# fit_iterative step {step}: quad-obj={-loss:.4f}"
+                      f"{it_msg}", file=sys.stderr, flush=True)
     if checkpoint_dir and start_step < steps:
         # a checkpoint already past `steps` keeps its own step
         save_state(steps)

@@ -20,6 +20,7 @@ import torch
 from cugp_tpu_torch.ops import cholesky as chol_ops
 from cugp_tpu_torch.ops import kernels as kernel_ops
 from cugp_tpu_torch.ops import trsm as trsm_ops
+from cugp_tpu_torch.utils import profiling
 from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 
 LOG2PI = math.log(2.0 * math.pi)
@@ -48,7 +49,7 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
     extra = None
     for i in range(1, max_attempts):
         ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1).sum(-1))
-        if bool(ok.all()):  # the level's host read
+        if profiling.read_bool(ok.all(), "chol_ladder"):
             break
         if extra is None:
             extra = torch.zeros_like(sf2)
@@ -59,17 +60,19 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
 
 
 def _factorize(params, X, y, kind, jitter, method, safe=True, n_true=None):
-    """K -> L, alpha = K^{-1} y."""
-    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                    method=method, n_true=n_true)
-    if safe:
-        sf2 = kernel_ops.signal_scale(params)
-        L = safe_cholesky(K, sf2, method=method, jitter0=max(jitter, 1e-6))
-    else:
-        L = chol_ops.cholesky(K, method=method)
-    if L.ndim == 3 and y.ndim == 1:  # a batch: y for every element
-        y = y.expand(L.shape[0], -1).contiguous()
-    alpha = trsm_ops.cho_solve(L, y, method=method)
+    """K -> L, alpha = K^{-1} y (the span ``cugp.factorize``)."""
+    with profiling.span("cugp.factorize", X.device):
+        K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
+                                        method=method, n_true=n_true)
+        if safe:
+            sf2 = kernel_ops.signal_scale(params)
+            L = safe_cholesky(K, sf2, method=method,
+                              jitter0=max(jitter, 1e-6))
+        else:
+            L = chol_ops.cholesky(K, method=method)
+        if L.ndim == 3 and y.ndim == 1:  # a batch: y for every element
+            y = y.expand(L.shape[0], -1).contiguous()
+        alpha = trsm_ops.cho_solve(L, y, method=method)
     return L, alpha
 
 

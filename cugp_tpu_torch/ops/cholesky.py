@@ -69,6 +69,7 @@ from cugp_tpu_torch.ops import chol_cuda
 from cugp_tpu_torch.ops import trsm as trsm_ops
 from cugp_tpu_torch.ops.blocking import BASE as _BASE
 from cugp_tpu_torch.ops.blocking import split_point as _split_point
+from cugp_tpu_torch.utils import profiling
 
 # Below this size a trailing update is one full GEMM; above, the SYRK
 # recursion skips the strictly-upper quadrant (as cholesky._SYRK_FULL).
@@ -143,7 +144,8 @@ class _Cholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, l_bar):
         (l,) = ctx.saved_tensors
-        return _murray_backward(l, l_bar), None, None
+        with profiling.span("cugp.chol_backward", l.device):
+            return _murray_backward(l, l_bar), None, None
 
 
 def cholesky(a, method="auto", precision=None):
