@@ -42,10 +42,15 @@ block here is simply smaller when chain_block does not divide C.
 
 Cross-rank adaptation (``psum_axis``, the chain-sharded samplers of
 ``parallel/sharded_sampling.py``): a mesh Group (``mesh.group("dp")``)
-or a torch ProcessGroup over which the acceptance means are averaged
-(JAX's pmean) and the mass moments' raw sums added (psum), so every rank
-adapts to the same step size and mass. ``psum_axis=None`` reduces over
-the local chains only.
+or a torch ProcessGroup whose ranks hold consecutive blocks of the
+chains, in rank order. Every rank gathers the chains' acceptance
+probabilities and positions (one all_gather each) and reduces them as
+one process holding every chain does, so every rank adapts to that
+process's step size and mass bit for bit (JAX's pmean and psum add the
+ranks' partial results instead: the adaptation is chaotic, one ulp of
+a mean moving the final step size by ~1e-4, and a partial sum rounds
+otherwise than the whole). ``psum_axis=None`` reduces over the local
+chains only.
 """
 
 from __future__ import annotations
@@ -55,22 +60,15 @@ from typing import NamedTuple
 import torch
 
 
-def _psum(x, psum_axis):
-    """x summed over the ranks of psum_axis (a Group or a ProcessGroup);
-    x itself for None."""
+def _all_chains(x, psum_axis):
+    """x (the local chains along dim 0) concatenated over the ranks of
+    psum_axis (a Group or a ProcessGroup) in rank order; x itself for
+    None."""
     if psum_axis is None:
         return x
     from cugp_tpu_torch.parallel import collectives
 
-    return collectives.all_reduce(x, collectives.as_group(psum_axis))
-
-
-def _axis_size(psum_axis):
-    if psum_axis is None:
-        return 1
-    from cugp_tpu_torch.parallel import collectives
-
-    return collectives.as_group(psum_axis).size
+    return collectives.all_gather(x, collectives.as_group(psum_axis))
 
 
 def blocked_chains(fn, chain_block):
@@ -194,13 +192,10 @@ def moments_init(dim, device=None):
 
 def moments_update(state, xs, psum_axis=None):
     """Accumulate a (n_chains, dim) batch of positions; with psum_axis,
-    the batch's count and raw sums added over its ranks (one all_reduce
-    of the three)."""
+    every rank's chains."""
+    xs = _all_chains(xs, psum_axis)
     b = _f32(xs.shape[0], xs.device)
     s1, s2 = torch.sum(xs, dim=0), torch.sum(xs * xs, dim=0)
-    if psum_axis is not None:
-        tot = _psum(torch.cat([b[None], s1, s2]), psum_axis)
-        b, s1, s2 = tot[0], tot[1:1 + s1.shape[0]], tot[1 + s1.shape[0]:]
     return MomentState(state.count + b, state.s1 + s1, state.s2 + s2)
 
 
@@ -279,12 +274,8 @@ def make_logprob(lml_fn, log_prior=default_log_prior):
 
 
 def _chain_mean(x, psum_axis):
-    """Mean over the chains; with psum_axis, over every rank's chains
-    (the mean of the ranks' means, JAX's pmean)."""
-    m = torch.mean(x, dim=0)
-    if psum_axis is None:
-        return m
-    return _psum(m, psum_axis) / _axis_size(psum_axis)
+    """Mean over the chains; with psum_axis, over every rank's chains."""
+    return torch.mean(_all_chains(x, psum_axis), dim=0)
 
 
 def warmup_adapt(state0, rng, kernel, num_warmup, eps0, target_accept,

@@ -1,9 +1,17 @@
 """Exact GP regression model, as ``cugp_tpu/models/exact_gp.py``.
 
 Plain functions composing the ops tier (covariance build, Cholesky,
-triangular solves) into the log-marginal likelihood, its gradient
-(autograd through the Cholesky and solve rules) and the posterior
-predictive. Tensors stay on the device they arrive on.
+triangular solves) into the log-marginal likelihood, its gradient and
+the posterior predictive. Tensors stay on the device they arrive on.
+
+Two backwards serve the gradients. ``log_marginal_likelihood`` carries
+its own autograd Function, whose backward is the closed form
+dLML/dA = 1/2 (alpha alpha^T - A^{-1}) (GPML eq. 5.9) from the saved
+factor (``cholesky.cho_inverse``, 2 n^3 / 3), A the matrix the jitter
+ladder last factored. Every other objective (the basis, multi-output
+and LOO ones, and the sparse, classification and LMC models)
+differentiates L itself, through Murray's rule in ``ops/cholesky.py``
+and the solves' rules.
 
 ``safe_cholesky``, ``_factorize`` and ``log_marginal_likelihood`` also
 take hyperparameters whose leaves carry a leading batch B (the samplers'
@@ -26,6 +34,26 @@ from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 LOG2PI = math.log(2.0 * math.pi)
 
 
+def _ladder(K, sf2, max_attempts, jitter0, factor):
+    """The jitter ladder of safe_cholesky: (factor(A), A), A the matrix
+    its last level factored (K, or K plus each failed element's jitter
+    on the diagonal, in K's autograd graph and sf2's)."""
+    A = K
+    L = factor(A)
+    extra = None
+    for i in range(1, max_attempts):
+        ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1).sum(-1))
+        if profiling.read_bool(ok.all(), "chol_ladder"):
+            break
+        if extra is None:
+            extra = torch.zeros_like(sf2)
+        extra = torch.where(ok, extra, jitter0 * (100.0 ** i) * sf2)
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        A = K + extra[..., None, None] * eye
+        L = factor(A)
+    return L, A
+
+
 def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
     """Cholesky with an escalating-jitter retry ladder.
 
@@ -45,35 +73,65 @@ def safe_cholesky(K, sf2, method="auto", max_attempts=2, jitter0=1e-6):
     failed factor (the JAX version's does: its gradient is NaN wherever
     the ladder retries). One host read per ladder level for the batch.
     """
-    L = chol_ops.cholesky(K, method=method)
-    extra = None
-    for i in range(1, max_attempts):
-        ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1).sum(-1))
-        if profiling.read_bool(ok.all(), "chol_ladder"):
-            break
-        if extra is None:
-            extra = torch.zeros_like(sf2)
-        extra = torch.where(ok, extra, jitter0 * (100.0 ** i) * sf2)
-        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-        L = chol_ops.cholesky(K + extra[..., None, None] * eye, method=method)
-    return L
+    return _ladder(K, sf2, max_attempts, jitter0,
+                   lambda a: chol_ops.cholesky(a, method=method))[0]
+
+
+def _factor(params, X, y, kind, jitter, method, safe, n_true, factor):
+    """(L, A, y): K's factor through `factor` (safe: the jitter ladder),
+    the matrix it factored, and y (a batch's for every element)."""
+    K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
+                                    method=method, n_true=n_true)
+    if safe:
+        L, A = _ladder(K, kernel_ops.signal_scale(params), 2,
+                       max(jitter, 1e-6), factor)
+    else:
+        L, A = factor(K), K
+    if L.ndim == 3 and y.ndim == 1:  # a batch: y for every element
+        y = y.expand(L.shape[0], -1).contiguous()
+    return L, A, y
 
 
 def _factorize(params, X, y, kind, jitter, method, safe=True, n_true=None):
-    """K -> L, alpha = K^{-1} y (the span ``cugp.factorize``)."""
+    """K -> L, alpha = K^{-1} y (the span ``cugp.factorize``), both in
+    the autograd graph (Murray's rule and the solves' rules)."""
     with profiling.span("cugp.factorize", X.device):
-        K = kernel_ops.train_covariance(params, X, kind=kind, jitter=jitter,
-                                        method=method, n_true=n_true)
-        if safe:
-            sf2 = kernel_ops.signal_scale(params)
-            L = safe_cholesky(K, sf2, method=method,
-                              jitter0=max(jitter, 1e-6))
-        else:
-            L = chol_ops.cholesky(K, method=method)
-        if L.ndim == 3 and y.ndim == 1:  # a batch: y for every element
-            y = y.expand(L.shape[0], -1).contiguous()
+        L, _, y = _factor(params, X, y, kind, jitter, method, safe, n_true,
+                          lambda a: chol_ops.cholesky(a, method=method))
         alpha = trsm_ops.cho_solve(L, y, method=method)
     return L, alpha
+
+
+class _LML(torch.autograd.Function):
+    """The LML from the forward's own factor L and alpha = A^{-1} y (both
+    outside the autograd graph), differentiable in A and y:
+    A_bar = g/2 (alpha alpha^T - A^{-1}), y_bar = -g alpha."""
+
+    @staticmethod
+    def forward(ctx, a, y, l, alpha, n):
+        ctx.save_for_backward(l, alpha)
+        logdet_half = torch.sum(torch.log(torch.diagonal(l, dim1=-2,
+                                                         dim2=-1)), dim=-1)
+        quad = torch.sum(y * alpha, dim=-1)
+        return -0.5 * quad - logdet_half - 0.5 * n * LOG2PI
+
+    @staticmethod
+    def backward(ctx, g):
+        l, alpha = ctx.saved_tensors
+        a_bar = y_bar = None
+        with profiling.span("cugp.chol_backward", l.device):
+            profiling.count("lml_backward.closed_form")
+            if ctx.needs_input_grad[0]:
+                a_bar = chol_ops.cho_inverse(l)
+                if a_bar.ndim == 2:
+                    a_bar.addr_(alpha, alpha, beta=-1.0)
+                else:
+                    a_bar.baddbmm_(alpha[..., :, None], alpha[..., None, :],
+                                   beta=-1.0)
+                a_bar.mul_(0.5 * g[..., None, None])
+            if ctx.needs_input_grad[1]:
+                y_bar = -g[..., None] * alpha
+        return a_bar, y_bar, None, None, None
 
 
 def log_marginal_likelihood(params, X, y, kind="rbf", jitter=1e-6,
@@ -81,15 +139,18 @@ def log_marginal_likelihood(params, X, y, kind="rbf", jitter=1e-6,
     """LML = -1/2 y^T alpha - sum_i log L_ii - N/2 log 2pi.
 
     Padded inputs: zero-pad X rows and y and pass the true count as
-    n_true; the result is the unpadded LML. Params with a leading batch
-    B give the (B,) LMLs.
+    n_true; the result is the unpadded LML (the identity-padded block
+    has A^{-1} = I and alpha = 0 there, so its gradient is the unpadded
+    one). Params with a leading batch B give the (B,) LMLs. The gradient
+    is the closed form of ``_LML`` (the span ``cugp.chol_backward``).
     """
-    L, alpha = _factorize(params, X, y, kind, jitter, method, safe, n_true)
+    with profiling.span("cugp.factorize", X.device):
+        L, A, y = _factor(params, X, y, kind, jitter, method, safe, n_true,
+                          lambda a: chol_ops.cholesky(a.detach(),
+                                                      method=method))
+        alpha = trsm_ops.cho_solve(L, y.detach(), method=method)
     n = n_true if n_true is not None else y.shape[-1]
-    logdet_half = torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
-                            dim=-1)
-    quad = torch.sum(y * alpha, dim=-1)
-    return -0.5 * quad - logdet_half - 0.5 * n * LOG2PI
+    return _LML.apply(A, y, L, alpha, n)
 
 
 def lml_value_and_grad(params, X, y, **kw):

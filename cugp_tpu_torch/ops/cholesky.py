@@ -53,7 +53,15 @@ The backward is Murray's Cholesky rule (Murray 2016, eq. 8-10) as an
 autograd Function; its two n x n solves run through the recursive
 ``solve_ltx_``, so they also use the TRSM kernel on CUDA. It runs in
 true fp32 whatever the forward's policy, as the JAX package's
-``_cholesky_bwd`` ignores ``precision``.
+``_cholesky_bwd`` ignores ``precision``. It takes an L_bar of any shape;
+the exact-GP LML, whose gradient needs A^{-1} itself, does not come
+through it (``models/exact_gp.log_marginal_likelihood``).
+
+``cho_inverse(L)`` is A^{-1} from the factor, in one n x n buffer: a
+triangular inverse W = L^{-1} (``_trtri_``, n^3/3) and the product
+W^T W (``_neg_lauum_``, n^3/3), both recursions split at the
+factorization's points, their GEMMs true fp32 and the base blocks the
+TRSM kernel (against an identity tile) and one small GEMM.
 
 A batch (B, n, n) (chains or Monte Carlo draws as a leading dimension)
 runs the same recursion with batched SYRK/GEMM updates (``baddbmm_``),
@@ -132,6 +140,93 @@ def _murray_backward(l, l_bar):
     return 0.25 * (s + s.mT)
 
 
+def _trtri_(a):
+    """Invert the lower triangle of a (n, n) or (B, n, n) view in place.
+
+    With A = [[L11, 0], [L21, L22]] split at split_point(n), the inverse
+    is W = [[W11, 0], [W21, W22]], W21 = -W22 L21 W11. The off-diagonal
+    block is left as V = L22^{-1} L21 L11^{-1} = -W21 (two TRSMs of the
+    factor's own blocks, then W11 and W22 recurse): every off-diagonal
+    block of the result, at every level, holds minus its block of W.
+    _trmm_ltx_ and _neg_lauum_ read that layout. Base blocks are their
+    full inverse with zeros above the diagonal."""
+    n = a.shape[-1]
+    if n <= _BASE:
+        x = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
+        x = trsm_ops.solve_lx_(a, x.contiguous())
+        a.copy_(x.tril_())
+        return
+    m = _split_point(n)
+    trsm_ops.solve_ltx_(a[..., :m, :m], a[..., m:, :m].mT)  # L21 L11^{-1}
+    trsm_ops.solve_lx_(a[..., m:, m:], a[..., m:, :m])
+    _trtri_(a[..., :m, :m])
+    _trtri_(a[..., m:, m:])
+
+
+def _trmm_ltx_(t, x):
+    """x := W^T x in place, W lower triangular held in t as _trtri_
+    leaves it (off-diagonal blocks negated): W^T = [[W11^T, W21^T],
+    [0, W22^T]], so x1 gets W11^T x1 - t21^T x2, then x2 gets W22^T x2."""
+    n = t.shape[-1]
+    if n <= _BASE:
+        x.copy_(torch.tril(t).mT @ x)
+        return
+    m = _split_point(n)
+    _trmm_ltx_(t[..., :m, :m], x[..., :m, :])
+    trsm_ops.sub_mm_(x[..., :m, :], t[..., m:, :m].mT, x[..., m:, :])
+    _trmm_ltx_(t[..., m:, m:], x[..., m:, :])
+
+
+def _neg_lauum_(a):
+    """-W^T W into the lower triangle of a, which holds W as _trtri_
+    leaves it; the upper triangle is left stale.
+
+    -C11 = -lauum(W11) - W21^T W21 (the SYRK-lower update, a21 = -W21),
+    -C21 = -W22^T W21 = W22^T a21, -C22 = -lauum(W22); the quadrant above
+    the diagonal is never formed."""
+    n = a.shape[-1]
+    if n <= _BASE:
+        w = torch.tril(a)
+        a.copy_((w.mT @ w).neg_())
+        return
+    m = _split_point(n)
+    _neg_lauum_(a[..., :m, :m])
+    _syrk_lower_(a[..., :m, :m], a[..., m:, :m].mT)
+    _trmm_ltx_(a[..., m:, m:], a[..., m:, :m])
+    _neg_lauum_(a[..., m:, m:])
+
+
+# Edge of the tiles in which _mirror_lower_ copies the lower triangle up.
+_MIRROR_TILE = 4096
+
+
+def _mirror_lower_(a):
+    """Copy the strict lower triangle of a onto the upper, in place, a
+    strip of _MIRROR_TILE rows at a time: the result is symmetric bit
+    for bit."""
+    n = a.shape[-1]
+    for i in range(0, n, _MIRROR_TILE):
+        j = min(i + _MIRROR_TILE, n)
+        d = a[..., i:j, i:j]
+        d.copy_(torch.tril(d) + torch.tril(d, -1).mT)
+        a[..., i:j, j:].copy_(a[..., j:, i:j].mT)
+
+
+def cho_inverse(l):
+    """A^{-1} = L^{-T} L^{-1}, symmetric bit for bit, from the lower
+    factor L (n, n) or (B, n, n) of A; only L's lower triangle is read.
+
+    One n x n buffer (a copy of L): _trtri_ and _neg_lauum_ in place,
+    2 n^3 / 3 flops, no quadrant known to be zero or a mirror image
+    multiplied but in the base blocks and the SYRK's small diagonal
+    quadrants. Not differentiable."""
+    a = torch.tril(l.detach())
+    _trtri_(a)
+    _neg_lauum_(a)
+    _mirror_lower_(a)
+    return a.neg_()
+
+
 class _Cholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, precision, offdiag):
@@ -145,6 +240,7 @@ class _Cholesky(torch.autograd.Function):
     def backward(ctx, l_bar):
         (l,) = ctx.saved_tensors
         with profiling.span("cugp.chol_backward", l.device):
+            profiling.count("lml_backward.murray")
             return _murray_backward(l, l_bar), None, None
 
 

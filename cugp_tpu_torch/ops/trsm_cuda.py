@@ -13,8 +13,9 @@ so no per-column substitution chain is left. Two routes follow: for
 k <= 16 right-hand sides (the alpha solves, the preconditioner) the solve
 is bound by latency and by the bytes of L one SM pulls in, so one CTA a
 column streams the tiles of L ahead of use with cp.async; for wider k
-(predict, the Cholesky panel solves, Murray's backward) it is bound by
-fp32 FMA issue, so a grid of column slabs runs register-tiled products.
+(predict, the Cholesky panel solves, Murray's backward, the triangular
+inverse of ``cholesky.cho_inverse``) it is bound by fp32 FMA issue, so
+a grid of column slabs runs register-tiled products.
 
 A batch (L (B, n, n), B (B, n, k)) is one launch of each pass with the
 element as the grid's second index, one scratch of inverted tiles an

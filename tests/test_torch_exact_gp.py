@@ -7,6 +7,7 @@ runs on CPU tensors, i.e. through its kernels' plain versions.
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,10 +15,12 @@ import torch
 
 from cugp_tpu.data import synthetic
 from cugp_tpu.models import exact_gp as jgp
+from cugp_tpu.ops import kernels as jk
 from cugp_tpu_torch.models import exact_gp as tgp
 from cugp_tpu_torch.ops import cholesky as tchol
 from cugp_tpu_torch.ops import kernels as tk
-from cugp_tpu_torch.utils.params import params_from_numpy
+from cugp_tpu_torch.ops import trsm as ttrsm
+from cugp_tpu_torch.utils.params import params_from_numpy, sorted_leaves
 
 torch.set_num_threads(1)
 
@@ -155,3 +158,121 @@ def test_safe_cholesky_recovers_from_nonpd():
     y = _t(rng.standard_normal(300))
     val = tgp.log_marginal_likelihood(p, X, y, jitter=0.0)
     assert np.isfinite(float(val))
+
+
+def _murray_lml(params, X, y, kind, n_true=None):
+    """The LML through Murray's route: autograd through the Cholesky's
+    and the solves' own rules, the ladder included (the composition
+    log_marginal_likelihood had before its closed-form backward)."""
+    K = tk.train_covariance(params, X, kind=kind, n_true=n_true)
+    L = tgp.safe_cholesky(K, tk.signal_scale(params))
+    if L.ndim == 3:
+        y = y.expand(L.shape[0], -1)
+    alpha = ttrsm.cho_solve(L, y)
+    n = n_true if n_true is not None else y.shape[-1]
+    return (-0.5 * torch.sum(y * alpha, dim=-1)
+            - torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                        dim=-1) - 0.5 * n * tgp.LOG2PI)
+
+
+def _grads(fn, P):
+    """The gradient of fn's sum over P's leaves, in jax's leaf order."""
+    leaves = sorted_leaves(P)
+    for t in leaves:
+        t.requires_grad_(True)
+    return [g.numpy() for g in torch.autograd.grad(fn(P).sum(), leaves)]
+
+
+def _assert_grads(got, want):
+    """rtol 1e-4 per entry, atol 1e-4 of the whole gradient's largest
+    entry (a leaf near its optimum reads a small difference of large
+    terms)."""
+    scale = max(float(np.abs(w).max()) for w in want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+# (kind, n, batch, n_true): n = 1500 recurses past the base size
+BACKWARD_CASES = {
+    "rbf": ("rbf", 256, None, None),
+    "matern32": ("matern32", 256, None, None),
+    "periodic": ("periodic", 256, None, None),
+    "composite": ("rbf*periodic+matern32", 256, None, None),
+    "matern32_1500": ("matern32", 1500, None, None),
+    "rbf_batched": ("rbf", 256, 3, None),
+    "matern32_padded": ("matern32", 256, None, 200),
+}
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_lml_closed_form_backward_matches_three_references(case):
+    """log_marginal_likelihood's backward, 1/2 (alpha alpha^T - A^{-1})
+    from the saved factor, against autograd through Murray's route, the
+    analytic gradient (base kinds) and jax.grad of the JAX package's LML.
+    A batch is held element by element to the two 2-D references; the
+    padded data (n_true) to the analytic gradient of the unpadded rows."""
+    kind, n, batch, n_true = BACKWARD_CASES[case]
+    X, y, _ = synthetic.sinusoid_1d(n=n_true or n, noise_std=0.1, seed=1)
+    if n_true is not None:
+        X, y = synthetic.pad_dataset(X, y, n)
+    X, y = X.astype(np.float32), y.astype(np.float32)
+    P = (jax.tree.map(lambda v: np.asarray(v, np.float32),
+                      jk.default_init(kind, d=1))
+         if tk.is_composite(kind) else np_params(kind))
+    if batch is not None:
+        rng = np.random.default_rng(2)
+        P = jax.tree.map(lambda v: (v[None] + rng.uniform(
+            -0.3, 0.3, (batch,) + np.shape(v))).astype(np.float32), P)
+    elements = [jax.tree.map(lambda v, b=b: v[b], P)
+                for b in range(batch or 1)] if batch else [P]
+
+    got = _grads(lambda p: tgp.log_marginal_likelihood(
+        p, _t(X), _t(y), kind=kind, n_true=n_true),
+        params_from_numpy(P, "cpu"))
+    _assert_grads(got, _grads(lambda p: _murray_lml(
+        p, _t(X), _t(y), kind, n_true=n_true), params_from_numpy(P, "cpu")))
+    for b, Pb in enumerate(elements):
+        got_b = [g[b] for g in got] if batch else got
+        want = jax.tree.leaves(jax.grad(lambda p: jgp.log_marginal_likelihood(
+            p, jnp.asarray(X), jnp.asarray(y), kind=kind, n_true=n_true))(
+                Pb))
+        _assert_grads(got_b, want)
+        if not tk.is_composite(kind):
+            m = n_true or n
+            an = tgp.lml_gradients_analytic(params_from_numpy(Pb, "cpu"),
+                                            _t(X[:m]), _t(y[:m]), kind=kind)
+            _assert_grads(got_b, [t.numpy() for t in sorted_leaves(an)])
+
+
+def test_lml_closed_form_backward_through_a_ladder_retry(monkeypatch):
+    """A first factor forced non-finite: the ladder factors K + jitter I
+    again, and the closed form's A (that matrix) carries the jitter's
+    gradient to log_signal_var as Murray's route does (JAX's ladder
+    gives NaN there, and the analytic gradient leaves the jitter out)."""
+    X, y, _ = synthetic.sinusoid_1d(n=256, noise_std=0.1, seed=1)
+    X, y = _t(X.astype(np.float32)), _t(y.astype(np.float32))
+    P = np_params("matern32")
+    real = tchol.cholesky
+    calls = []
+
+    def first_fails(a, method="auto", precision=None):
+        calls.append(a.shape)
+        l = real(a, method=method, precision=precision)
+        return l * float("nan") if len(calls) == 1 else l
+
+    monkeypatch.setattr(tchol, "cholesky", first_fails)
+    got = _grads(lambda p: tgp.log_marginal_likelihood(
+        p, X, y, kind="matern32"), params_from_numpy(P, "cpu"))
+    assert len(calls) == 2
+    calls.clear()
+    want = _grads(lambda p: _murray_lml(p, X, y, "matern32"),
+                  params_from_numpy(P, "cpu"))
+    assert len(calls) == 2
+    _assert_grads(got, want)
+    monkeypatch.setattr(tchol, "cholesky", real)
+    plain = _grads(lambda p: tgp.log_marginal_likelihood(
+        p, X, y, kind="matern32"), params_from_numpy(P, "cpu"))
+    # the retry's jitter (1e-4 sf2) moves the gradient
+    assert not all(np.array_equal(a, b) for a, b in zip(got, plain))

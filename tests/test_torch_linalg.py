@@ -132,3 +132,23 @@ def test_solve_gradient_matches_jax(small_base, name):
     gl_t, gb_t = torch.autograd.grad(f, (lt, bt))
     assert_normwise(gb_t.numpy(), gb_j)
     assert_normwise(np.tril(gl_t.numpy()), np.tril(np.asarray(gl_j)))
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("n", [1, 7, 1024, 1025, 2500])
+def test_cho_inverse_matches_float64(n, batch):
+    """cho_inverse (the blocked triangular inverse and W^T W, at the real
+    base size: 2500 recurses past it twice) against float64
+    torch.cholesky_inverse of the same factor (cond 1e2, off-diagonal
+    entries of the inverse near its largest), normwise at rtol 5e-6;
+    symmetric bit for bit; only L's lower triangle read."""
+    a = np.stack([_spd(n, seed=n + b, cond=1e2).astype(np.float64)
+                  for b in range(batch or 1)])
+    l64 = torch.linalg.cholesky(torch.tensor(a if batch else a[0]))
+    l = l64.float()
+    inv = tchol.cho_inverse(l)
+    assert_normwise(inv.numpy(), torch.cholesky_inverse(l64).numpy(),
+                    rtol=5e-6)
+    assert torch.equal(inv, inv.mT)
+    junk = l + torch.triu(torch.full_like(l, 9.0), 1)
+    assert torch.equal(tchol.cho_inverse(junk), inv)

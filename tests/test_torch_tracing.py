@@ -122,15 +122,40 @@ def test_host_reads_are_counted_where_they_are_made():
         "host_read.cg_converged": int(iters.sum()) + STEPS,
         "host_read.fit_iterative_value": STEPS}
     _run("fit", traced=True)
-    # the finite guard and the jitter ladder's one level, a step
+    # the finite guard and the jitter ladder's one level, a step, and the
+    # LML's backward
     assert profiling.counts() == {"host_read.finite_guard": STEPS,
-                                  "host_read.chol_ladder": STEPS}
+                                  "host_read.chol_ladder": STEPS,
+                                  "lml_backward.closed_form": STEPS}
     _run("predict", traced=True)
     assert profiling.counts() == {"host_read.chol_ladder": 1}
     X, y = _data()
     with profile(activities=[ProfilerActivity.CPU]):
         GP(kind="matern32", device="cpu", normalize_y=True).condition(X, y)
     assert profiling.counts() == {"host_read.normalize_y": 2}
+
+
+@pytest.mark.parametrize("basis", [None, "constant"])
+def test_each_step_counts_the_backward_rule_it_took(basis):
+    """GP.fit on the plain LML takes the closed-form backward once a step,
+    inside ``cugp.chol_backward``; the basis objective differentiates L
+    itself and takes Murray's rule (its n x n factor and the m_b x m_b
+    one: two a step)."""
+    X, y = _data()
+    gp = GP(kind="matern32", device="cpu", basis=basis)
+    with profile(activities=[ProfilerActivity.CPU]):
+        gp.fit(X, y, steps=STEPS, learning_rate=0.1)
+    counts = profiling.counts()
+    spans = [s for s in profiling.spans() if s.name == "cugp.chol_backward"]
+    assert all(s.parent.name == "cugp.step" for s in spans)
+    if basis is None:
+        assert counts.get("lml_backward.closed_form", 0) == STEPS
+        assert counts.get("lml_backward.murray", 0) == 0
+        assert len(spans) == STEPS
+    else:
+        assert counts.get("lml_backward.closed_form", 0) == 0
+        assert counts.get("lml_backward.murray", 0) == 2 * STEPS
+        assert len(spans) == 2 * STEPS
 
 
 def test_stamps_share_the_chrome_traces_clock(tmp_path):
