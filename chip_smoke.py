@@ -143,7 +143,8 @@ Phases, one line of output each (or a few), failing fast with exit 1:
      NCCL at config 4's N=32768, d=8 (distributed_cholesky, chunk 8192,
      phase 4's gate; distributed_lml and its gradient against the
      single-device LML), with two ranks asking NCCL for the one card
-     beside it (its answer printed); (b) four ranks on gloo sharing the
+     beside it (its answer printed); (b) four ranks, on NCCL one rank a
+     card where the machine has four cards, else on gloo sharing the
      card, CUDA tensors, the collectives gloo does not carry for CUDA
      staged through the host and counted: config 4 (ring covariance
      against train_covariance's rows, the relayout round trip bitwise,
@@ -4177,8 +4178,10 @@ def _dist_rank(rank, world, part, url, backend, dev_type, work, go):
         info = runtime.initialize(url, world, rank, device=dev_type,
                                   backend=backend)
         res["runtime"] = vars(info)
-        dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
-            torch.device("cpu")
+        # part (b) on NCCL: each rank on the card initialize chose
+        dev = (torch.device("cuda", torch.cuda.current_device()
+                            if part == "b" and backend == "nccl" else 0)
+               if dev_type == "cuda" else torch.device("cpu"))
         go.wait()
         reset_launches()
         counted = _DistLaunches()
@@ -4248,10 +4251,10 @@ def phase_distributed(torch, dev):
     distributed_lml with its gradient against the single-device LML;
     beside it two ranks asking NCCL for the one card (its answer is
     recorded, and what gloo does there with CUDA tensors, collective by
-    collective, unstaged). (b) four ranks on gloo sharing the card (CUDA
-    tensors; the
-    collectives gloo does not carry for CUDA are staged through the host
-    and counted): config 4 at N=32768 (ring covariance, the relayout
+    collective, unstaged). (b) four ranks, on NCCL one rank a card where
+    the machine has four cards, else on gloo sharing the card (CUDA
+    tensors; the collectives gloo does not carry for CUDA are staged
+    through the host and counted): config 4 at N=32768 (ring covariance, the relayout
     round trip, block-cyclic and chunked Cholesky, distributed_lml and
     its gradient, two sharded MAP steps at N=8192), config 3's 256 chains
     over dp=4 with the single process's draws replayed, the large-N
@@ -4260,8 +4263,8 @@ def phase_distributed(torch, dev):
     fit_iterative_sharded and the matrix-free sampler at n=32768. The
     ranks are spawned children that only load the kernel library the
     parent built; their launches on the path are summed (the
-    "distributed" path). Times from (b) are four processes sharing one
-    card and claim no scaling.
+    "distributed" path). Times from (b) on one card are four processes
+    sharing it and claim no scaling.
     """
     import multiprocessing
     import shutil
@@ -4288,12 +4291,17 @@ def phase_distributed(torch, dev):
         ctx = multiprocessing.get_context("spawn")
         go_probe, go_a, go_b = ctx.Event(), ctx.Event(), ctx.Event()
         backend_a = "nccl" if dev.type == "cuda" else "gloo"
+        # one rank a card where there are four cards, else all on one
+        backend_b = ("nccl" if dev.type == "cuda"
+                     and torch.cuda.device_count() >= 4 else "gloo")
+        say("dist", part_b_backend=backend_b,
+            cards=torch.cuda.device_count() if dev.type == "cuda" else 0)
         t0 = time.perf_counter()
         # every rank starts now (torch's import and the card's context
         # overlap); each group waits for its turn
         groups = {"a": _dist_spawn(ctx, "a", 1, backend_a, dev.type, work,
                                    go_a),
-                  "b": _dist_spawn(ctx, "b", 4, "gloo", dev.type, work,
+                  "b": _dist_spawn(ctx, "b", 4, backend_b, dev.type, work,
                                    go_b)}
         if dev.type == "cuda":
             groups["probes"] = _dist_spawn(ctx, "probes", 2, "nccl",

@@ -27,8 +27,10 @@ element equals its own 2-D build bitwise. A 2-D call is the B = 1 case.
 (the same formulas in torch ops) for CPU tensors; ``LAUNCHES`` counts its
 calls that launched (a pre-pass and the tiles each). ``CovTile`` is the
 autograd Function around it: forward launches the kernel, backward is the
-VJP of the plain tile function recomputed on the same inputs — the
-counterpart of the custom VJPs at ``cugp_tpu/ops/kernels.py:347-400``.
+VJP of the plain tile function recomputed on the same inputs, a row tile
+of ``BACKWARD_TILE`` entries at a time (``cov_tile_vjp``), so no
+intermediate of the size of the tile is formed — the counterpart of the
+custom VJPs at ``cugp_tpu/ops/kernels.py:347-400``.
 """
 
 from __future__ import annotations
@@ -63,14 +65,16 @@ def kernel_fn_plain(d2, kind, alpha):
     raise ValueError(f"unknown kernel kind: {kind}")
 
 
-def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
+def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true, row0=0):
     """The covariance tile in torch ops (cov_pallas._cov_kernel's formulas).
 
     xs1 (m, d), xs2 (n, d): rows already divided by the lengthscale.
     scal: (3,) tensor [sf2, diag_add, alpha]. Rows >= n1_true / cols >=
     n2_true follow the padding contract (identity block when square,
     zeros otherwise). A batch (xs1 (B, m, d), xs2 (B, n, d), scal (B, 3))
-    goes through broadcasting.
+    goes through broadcasting. row0: the tile's rows are rows row0 ...
+    row0 + m of the whole tile (the diagonal and the padding placed by
+    the whole tile's indices).
 
     On a square build's diagonal d2 is set to exactly 0 (a GEMM need not
     round s1 + s2 - 2 cross to 0 there, and matern12's sqrt turns that
@@ -80,7 +84,7 @@ def cov_tile_plain(xs1, xs2, scal, kind, square, n1_true, n2_true):
     sf2, diag_add, alpha = (scal[..., i, None, None] for i in range(3))
     cross = xs1 @ xs2.mT
     m, n = cross.shape[-2:]
-    rows = torch.arange(m, device=cross.device)[:, None]
+    rows = torch.arange(row0, row0 + m, device=cross.device)[:, None]
     cols = torch.arange(n, device=cross.device)[None, :]
     if kind == "linear":
         k = sf2 * cross + alpha
@@ -164,8 +168,41 @@ def cov_tile(xs1, xs2, scal, kind, square, n1_true, n2_true):
     return out
 
 
+# Entries of the tile that the backward recomputes at a time: a row tile
+# of 2^26 entries (256 MB a plain intermediate) keeps the VJP's peak at a
+# few GB at any size, and each tile's launches well under its device time.
+BACKWARD_TILE = 1 << 26
+
+
+def cov_tile_vjp(xs1, xs2, scal, kind, square, n1_true, n2_true, g):
+    """The gradients of sum(g * cov_tile_plain(xs1, xs2, scal, ...)) in
+    xs1, xs2 and scal: the plain tile's VJP taken over row tiles of
+    BACKWARD_TILE entries, each tile's the same per-element arithmetic,
+    the gradients of xs2 and scal summed over the tiles."""
+    m, n = xs1.shape[-2], xs2.shape[-2]
+    rows = max(1, BACKWARD_TILE // max(1, n * g.shape[:-2].numel()))
+    x2 = xs2.detach().requires_grad_(True)
+    sc = scal.detach().requires_grad_(True)
+    g1, g2, gs = torch.empty_like(xs1), None, None
+    for r0 in range(0, m, rows):
+        r1 = min(r0 + rows, m)
+        with torch.enable_grad():
+            x1 = xs1[..., r0:r1, :].detach().requires_grad_(True)
+            k = cov_tile_plain(x1, x2, sc, kind, square, n1_true, n2_true,
+                               row0=r0)
+            a, b, c = torch.autograd.grad(k, (x1, x2, sc),
+                                          g[..., r0:r1, :])
+        g1[..., r0:r1, :] = a
+        g2 = b if g2 is None else g2.add_(b)
+        gs = c if gs is None else gs.add_(c)
+    if g2 is None:  # no rows
+        g2, gs = torch.zeros_like(xs2), torch.zeros_like(scal)
+    return g1, g2, gs
+
+
 class CovTile(torch.autograd.Function):
-    """cov_tile with the VJP of cov_tile_plain as its backward."""
+    """cov_tile with the VJP of cov_tile_plain, in row tiles
+    (cov_tile_vjp), as its backward."""
 
     @staticmethod
     def forward(ctx, xs1, xs2, scal, kind, square, n1_true, n2_true):
@@ -176,8 +213,5 @@ class CovTile(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         xs1, xs2, scal = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True) for t in (xs1, xs2, scal)]
-            k = cov_tile_plain(*ins, *ctx.args)
-            grads = torch.autograd.grad(k, ins, g)
-        return (*grads, None, None, None, None)
+        return (*cov_tile_vjp(xs1, xs2, scal, *ctx.args, g),
+                None, None, None, None)

@@ -15,7 +15,9 @@ Two schedules:
                   (``async_op``) before the bulk trailing update of panel
                   k, so the next panel travels while the update runs; the
                   panels move by broadcasts (no all_reduce), and each
-                  update touches only the active trailing region;
+                  update touches only the trailing blocks on or below the
+                  block diagonal (one GEMM a local block-row: n^3/3 in
+                  all); the strictly-upper blocks keep stale values;
   pipelined=False the legacy reference: masked all_reduce broadcasts and a
                   full-size masked update every panel.
 
@@ -26,9 +28,32 @@ the diagonal block and the panel solve run ``ops.cholesky`` and
 ``_STATIC_UNROLL_MAX_NB`` panels) and a chunked-rolled body bounds its
 trace size, which eager torch does not have: one loop serves every panel
 count, and ``chunk`` is accepted (a positive int) and changes nothing.
+
+The distributed LML (distributed_chol.py) works on a rank's block-cyclic
+array in place with the look-ahead body (``factor_``) and three more
+loops over the nb block rows or columns, the counterparts of ScaLAPACK's
+p?trtrs, p?trtri and p?lauum:
+
+  tri_solve  L x = v or L^T x = v for a replicated vector v: a block's
+             partial products reduced along the mesh axis that holds its
+             row (column), then solved by the diagonal block's owner and
+             broadcast to every rank;
+  trtri_     W = L^{-1} (n^3/3), right-looking: block row k of W is
+             L_kk^{-1} B[k, :k+1], then B[i>k, :k+1] -= L[i>k, k]
+             W[k, :k+1], B the identity so updated; one broadcast of L's
+             column k along 'c' and of W's row k along the rows a step;
+  lauum_     the lower blocks of W^T W (n^3/3): step l adds W[l, i]^T
+             W[l, j] to each block j <= i <= l, W's row l broadcast along
+             the rows and gathered along 'c'.
+
+Each leaves the strictly-upper blocks stale. The grid's rows may be one
+mesh axis or several: ('dp', 'r') for the LML, whose rows are sharded
+over both (``Grid(..., rows=...)``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -56,21 +81,59 @@ def _ceil_div(a, b):
     return -(-a // b)
 
 
-class _Grid:
-    """This rank's place in the block-cyclic grid: local block-row t is
-    global block-row t*R + my_r, local block-col t is t*C + my_c."""
+def block_size(n, R, C, limit):
+    """The largest block at most `limit` that tiles n over an R x C grid
+    (a divisor of n/R and of n/C)."""
+    if n % R or n % C:
+        raise ValueError(f"n={n} is not divisible by the grid's R={R} "
+                         f"and C={C}")
+    g = math.gcd(n // R, n // C)
+    return max(d for d in range(1, min(limit, g) + 1) if g % d == 0)
 
-    def __init__(self, mesh, nb, block, nbr, nbc):
-        self.gr, self.gc = mesh.group("r"), mesh.group("c")
-        self.R, self.C = mesh.shape["r"], mesh.shape["c"]
-        self.my_r, self.my_c = mesh.coords["r"], mesh.coords["c"]
-        self.nb, self.block, self.nbr, self.nbc = nb, block, nbr, nbc
+
+class Grid:
+    """This rank's place in the block-cyclic grid: local block-row t is
+    global block-row t*R + my_r, local block-col t is t*C + my_c. rows:
+    the mesh axis, or tuple of axes, the grid's rows are sharded over."""
+
+    def __init__(self, mesh, nb, block, rows="r"):
+        rows = (rows,) if isinstance(rows, str) else tuple(rows)
+        self.gr, self.gc = mesh.group(rows), mesh.group("c")
+        self.gall = mesh.group(rows + ("c",))
+        self.R, self.C = self.gr.size, self.gc.size
+        self.my_r, self.my_c = self.gr.index, self.gc.index
+        self.nb, self.block = nb, block
+        self.nbr, self.nbc = nb // self.R, nb // self.C
 
     def row_blocks(self):
         return np.arange(self.nbr) * self.R + self.my_r
 
     def col_blocks(self):
         return np.arange(self.nbc) * self.C + self.my_c
+
+    def _index(self, blocks, device):
+        b = self.block
+        return torch.as_tensor((blocks[:, None] * b + np.arange(b)).reshape(
+            -1), device=device)
+
+    def rows_index(self, device=None):
+        """Global indices of the local rows, in local order."""
+        return self._index(self.row_blocks(), device)
+
+    def cols_index(self, device=None):
+        return self._index(self.col_blocks(), device)
+
+    def rows_from(self, k):
+        """The first local block-row whose global block-row is >= k."""
+        return min(max(0, _ceil_div(k - self.my_r, self.R)), self.nbr)
+
+    def cols_to(self, k):
+        """How many local block-cols have a global block-col <= k."""
+        return min(max(0, (k - self.my_c) // self.C + 1), self.nbc)
+
+    def owner(self, k):
+        """The index in ``gall`` of the rank holding diagonal block k."""
+        return (k % self.R) * self.C + k % self.C
 
     def transpose_panel(self, panel_all, k, r_off, c_off):
         """L_jk rows for my local block-cols t >= c_off, from the panels of
@@ -87,14 +150,32 @@ class _Grid:
         return q.reshape(-1, b)
 
     def lower_mask(self, A_loc):
-        b = self.block
-        gr = np.repeat(self.row_blocks(), b) * b + np.tile(np.arange(b),
-                                                           self.nbr)
-        gc = np.repeat(self.col_blocks(), b) * b + np.tile(np.arange(b),
-                                                           self.nbc)
+        gr = self.rows_index().numpy()
+        gc = self.cols_index().numpy()
         mask = torch.as_tensor(gr[:, None] >= gc[None, :],
                                device=A_loc.device)
         return torch.where(mask, A_loc, 0.0)
+
+    def block_weights(self, device, dtype=torch.float32):
+        """(nbr, nbc): 2 below the block diagonal, 1 on it, 0 above; a
+        symmetric matrix's sum over all its entries is the sum of its
+        lower blocks so weighted."""
+        rb, cb = self.row_blocks()[:, None], self.col_blocks()[None, :]
+        return torch.as_tensor(np.where(rb > cb, 2.0, (rb == cb) * 1.0),
+                               dtype=dtype, device=device)
+
+
+def _sub_lower_(A, panel, q, grid, r_off, c_off):
+    """A[r_off*b:, c_off*b:] -= panel @ q^T on the blocks on or below the
+    block diagonal: local block-row t takes the block-cols up to its own
+    global block-row, one GEMM a row."""
+    b = grid.block
+    for t in range(r_off, grid.nbr):
+        hi = grid.cols_to(t * grid.R + grid.my_r)
+        if hi > c_off:
+            A[t * b:(t + 1) * b, c_off * b:hi * b].addmm_(
+                panel[(t - r_off) * b:(t - r_off + 1) * b],
+                q[:(hi - c_off) * b].mT, alpha=-1.0)
 
 
 def _factor_local(A, grid):
@@ -123,9 +204,11 @@ def _factor_local(A, grid):
     return A
 
 
-def _factor_local_la(A, grid):
-    """Look-ahead body: broadcasts, shrinking updates, panel k+1 sent
-    while the bulk update of panel k runs."""
+def factor_(A, grid):
+    """Look-ahead body: broadcasts, shrinking lower-block updates, panel
+    k+1 sent while the bulk update of panel k runs. Factors A in place:
+    its lower blocks become L's (each diagonal block lower triangular
+    with zeros above)."""
     b, R, C, nb = grid.block, grid.R, grid.C, grid.nb
     g_row = np.repeat(grid.row_blocks(), b)
 
@@ -137,7 +220,7 @@ def _factor_local_la(A, grid):
 
     def finish_panel(k, strip, r_off):
         """Factor panel k from its strip (already on every rank of the
-        mesh row): the diagonal block along 'r', the panel solve."""
+        mesh row): the diagonal block along the rows, the panel solve."""
         d_off = (k // R - r_off) * b
         diag = collectives.broadcast(strip[d_off:d_off + b], grid.gr, k % R)
         l_kk = chol_ops.cholesky(diag)
@@ -173,8 +256,103 @@ def _factor_local_la(A, grid):
                 strip -= panel[(rn_off - r_off) * b:] @ q[cn:cn + b].mT
                 q[cn:cn + b] = 0.0  # the bulk update leaves column k+1
             work = collectives.broadcast_async(strip, grid.gc, kn % C)
-        A[r_off * b:, c_off * b:] -= panel @ q.mT
+        _sub_lower_(A, panel, q, grid, r_off, c_off)
         r_off = lr0(k + 1)
+    return A
+
+
+
+def tri_solve(A, grid, v, transpose=False):
+    """x = L^{-1} v, or L^{-T} v with transpose, for L in A's lower blocks
+    (as factor_ leaves them) and v replicated (n,); x is replicated, the
+    same bits on every rank."""
+    b, R, C = grid.block, grid.R, grid.C
+    x = v.clone()
+    rows, cols = grid.rows_index(A.device), grid.cols_index(A.device)
+    steps = range(grid.nb - 1, -1, -1) if transpose else range(grid.nb)
+    for k in steps:
+        kb_r, kb_c = k // R, k // C
+        s = None
+        if not transpose and grid.my_r == k % R:
+            # row k of L left of its diagonal block, along 'c'
+            hi = grid.cols_to(k - 1)
+            s = collectives.all_reduce(
+                A[kb_r * b:(kb_r + 1) * b, :hi * b] @ x[cols[:hi * b]],
+                grid.gc)
+        elif transpose and grid.my_c == k % C:
+            # column k of L below its diagonal block, along the rows
+            lo = grid.rows_from(k + 1)
+            s = collectives.all_reduce(
+                A[lo * b:, kb_c * b:(kb_c + 1) * b].mT @ x[rows[lo * b:]],
+                grid.gr)
+        if grid.my_r == k % R and grid.my_c == k % C:
+            l_kk = A[kb_r * b:(kb_r + 1) * b, kb_c * b:(kb_c + 1) * b]
+            rhs = x[k * b:(k + 1) * b] - s
+            xk = (trsm_ops.solve_ltx(l_kk, rhs) if transpose
+                  else trsm_ops.solve_lx(l_kk, rhs))
+        else:
+            xk = x.new_empty(b)
+        x[k * b:(k + 1) * b] = collectives.broadcast(xk, grid.gall,
+                                                     grid.owner(k))
+    return x
+
+
+def trtri_(A, grid):
+    """W = L^{-1} in place on A's lower blocks (L as factor_ leaves it):
+    each diagonal block becomes its inverse, lower triangular with zeros
+    above."""
+    b, R, C = grid.block, grid.R, grid.C
+    for k in range(grid.nb):
+        kb_r, kb_c = k // R, k // C
+        lo, gt = grid.rows_from(k), grid.rows_from(k + 1)
+        # L's column k, rows >= k, to every rank of the mesh row
+        mine_c = grid.my_c == k % C
+        src = (A[lo * b:, kb_c * b:(kb_c + 1) * b].clone() if mine_c
+               else A.new_empty(((grid.nbr - lo) * b, b)))
+        strip = collectives.broadcast(src, grid.gc, k % C)
+        if mine_c:
+            A[gt * b:, kb_c * b:(kb_c + 1) * b].zero_()  # B's column k
+        # W's row k = L_kk^{-1} B[k, :k+1], to every rank of the column
+        hi = grid.cols_to(k)
+        if grid.my_r == k % R:
+            row = A[kb_r * b:(kb_r + 1) * b, :hi * b]
+            if mine_c:
+                row[:, kb_c * b:].copy_(torch.eye(b, dtype=A.dtype,
+                                                  device=A.device))
+            trsm_ops.solve_lx_(strip[:b], row)
+            if mine_c:
+                row[:, kb_c * b:].tril_()
+        else:
+            row = A.new_empty((b, hi * b))
+        w_row = collectives.broadcast(row, grid.gr, k % R)
+        if gt < grid.nbr and hi:
+            A[gt * b:, :hi * b].addmm_(strip[(gt - lo) * b:], w_row,
+                                       alpha=-1.0)
+    return A
+
+
+def lauum_(A, grid):
+    """The lower blocks of W^T W in place on A's lower blocks (W as
+    trtri_ leaves it); the diagonal blocks come out whole."""
+    b, R, C = grid.block, grid.R, grid.C
+    for k in range(grid.nb):
+        kb_r, hi = k // R, grid.cols_to(k)
+        # W's row k on my columns (zeros right of its diagonal block),
+        # then on every column
+        if grid.my_r == k % R:
+            src = A[kb_r * b:(kb_r + 1) * b].clone()
+            src[:, hi * b:] = 0.0
+            A[kb_r * b:(kb_r + 1) * b].zero_()  # C's row k starts here
+        else:
+            src = A.new_empty((b, grid.nbc * b))
+        w_row = collectives.broadcast(src, grid.gr, k % R)
+        w_all = collectives.all_gather(w_row, grid.gc).view(
+            C, b, grid.nbc, b)
+        for t in range(grid.rows_from(k + 1)):
+            i = t * R + grid.my_r
+            h = grid.cols_to(i)
+            A[t * b:(t + 1) * b, :h * b].addmm_(
+                w_all[i % C, :, i // C].mT, w_row[:, :h * b])
     return A
 
 
@@ -202,7 +380,7 @@ def block_cyclic_cholesky(K_loc, mesh, block=128, pipelined=True, chunk=8,
             f"the grid and divisible by block*R={block * R} and "
             f"block*C={block * C}")
     nb = n // block
-    grid = _Grid(mesh, nb, block, nb // R, nb // C)
+    grid = Grid(mesh, nb, block)
     spec = Sharding(mesh, ("r", "c"))
     with torch.no_grad():
         if relayout == "all_to_all":
@@ -213,7 +391,7 @@ def block_cyclic_cholesky(K_loc, mesh, block=128, pipelined=True, chunk=8,
             Kp = spec.shard(spec.gather(K_loc)[row_perm][:, col_perm])
         else:
             raise ValueError(f"unknown relayout: {relayout}")
-        body = _factor_local_la if pipelined else _factor_local
+        body = factor_ if pipelined else _factor_local
         Lp = grid.lower_mask(body(Kp.clone(), grid))
         if relayout == "all_to_all":
             return relayout_lib.from_block_cyclic(Lp, mesh, block)

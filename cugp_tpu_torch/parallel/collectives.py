@@ -33,7 +33,12 @@ transport for several ranks that share one card, counted in ``STAGED``
 (bytes by collective). The NCCL path never stages, and the computation
 stays on the card either way. ``CALLS`` counts the calls each collective made
 (the JAX tests read the compiled program's collectives; the port's read
-these counts).
+these counts). In a recording profiler session each call also adds the
+bytes it moves on this rank to the counter ``collective_bytes.<op>``
+(``utils.profiling.count``): the buffer it fills here (a broadcast's or an
+all_reduce's tensor, an all_gather's whole output, an all_to_all's
+received chunks, a ring shift's received tensors); a group of one rank
+moves nothing and adds 0.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ import collections
 
 import torch
 import torch.distributed as dist
+
+from cugp_tpu_torch.utils import profiling
 
 CALLS = collections.Counter()   # collective -> calls made
 STAGED = collections.Counter()  # collective -> bytes staged through the host
@@ -108,12 +115,18 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _moved(op, *ts):
+    """Count the bytes of ts as moved by collective `op` on this rank."""
+    profiling.count("collective_bytes." + op, _nbytes(*ts))
+
+
 # ---- the collectives themselves (no autograd) ----
 
 
 def _all_reduce_(t, g):
     """Sum t over the group, in place."""
     CALLS["all_reduce"] += 1
+    _moved("all_reduce", t)
     dist.all_reduce(t, group=g.pg)
     return t
 
@@ -126,6 +139,7 @@ def _all_gather(t, g, dim):
     outs = [torch.empty_like(x) for _ in range(g.size)]
     dist.all_gather(outs, x, group=g.pg)
     out = torch.cat(outs)
+    _moved("all_gather", out)
     if staged:
         STAGED["all_gather"] += _nbytes(x, out)
         out = out.to(t.device)
@@ -141,6 +155,7 @@ def _all_to_all(t, g):
     x = src.cpu() if staged else src
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=g.pg)
+    _moved("all_to_all", out)
     if staged:
         STAGED["all_to_all"] += _nbytes(x, out)
         out = out.to(t.device)
@@ -163,6 +178,7 @@ def _shift(ts, g, shift):
         ops.append(dist.P2POp(dist.irecv, o, frm, group=g.pg))
     for w in dist.batch_isend_irecv(ops):
         w.wait()
+    _moved("ppermute", *outs)
     if staged:
         STAGED["ppermute"] += 2 * _nbytes(*xs)
         outs = [o.to(t.device) for o, t in zip(outs, ts)]
@@ -173,6 +189,7 @@ def _broadcast(t, g, src, async_op=False):
     """Broadcast t (in place) from group index src; with async_op, returns
     the work to wait on."""
     CALLS["broadcast"] += 1
+    _moved("broadcast", t)
     return dist.broadcast(t, src=g.ranks[src], group=g.pg,
                           async_op=async_op)
 
@@ -263,42 +280,63 @@ class _ReplicatedOut(torch.autograd.Function):
 
 def all_reduce(x, g):
     """Sum of x over the group, on every rank (psum)."""
-    return x if g.size == 1 else _AllReduce.apply(x, g)
+    if g.size == 1:
+        _moved("all_reduce")
+        return x
+    return _AllReduce.apply(x, g)
 
 
 def all_gather(x, g, dim=0):
     """The ranks' x concatenated along dim in group order."""
-    return x if g.size == 1 else _AllGather.apply(x, g, dim)
+    if g.size == 1:
+        _moved("all_gather")
+        return x
+    return _AllGather.apply(x, g, dim)
 
 
 def all_to_all(x, g):
     """Equal chunks of x along dim 0 exchanged: chunk j goes to group
     index j; the result holds chunk `index` of every rank, in order."""
-    return x if g.size == 1 else _AllToAll.apply(x, g)
+    if g.size == 1:
+        _moved("all_to_all")
+        return x
+    return _AllToAll.apply(x, g)
 
 
 def ring_shift(x, g, shift=1):
     """ppermute by `shift` around the group's ring: send to index +
     shift, receive from index - shift."""
-    return x if g.size == 1 else _Shift.apply(x, g, shift)
+    if g.size == 1:
+        _moved("ppermute")
+        return x
+    return _Shift.apply(x, g, shift)
 
 
 def ring_shift_many(xs, g, shift=1):
     """ring_shift of several tensors in one batch of sends and receives
     (no gradient)."""
-    return list(xs) if g.size == 1 else _shift(xs, g, shift)
+    if g.size == 1:
+        _moved("ppermute")
+        return list(xs)
+    return _shift(xs, g, shift)
 
 
 def broadcast(x, g, src):
     """x of group index src on every rank; x on the other ranks only
     gives the shape (its values are not read)."""
-    return x if g.size == 1 else _Broadcast.apply(x, g, src)
+    if g.size == 1:
+        _moved("broadcast")
+        return x
+    return _Broadcast.apply(x, g, src)
 
 
 def broadcast_async(x, g, src):
     """Start broadcasting x in place from group index src (no gradient);
     returns the work to wait on, or None for one rank."""
-    return None if g.size == 1 else _broadcast(x, g, src, async_op=True)
+    if g.size == 1:
+        _moved("broadcast")
+        return None
+    return _broadcast(x, g, src, async_op=True)
 
 
 def grad_sync(x, g):

@@ -21,12 +21,30 @@ The layout stays where it is: a rank's trailing block shrinks as the
 sweep passes its rows and columns (the block-cyclic layout of
 block_cyclic.py is the one that balances it). The diagonal chunks are
 factored redundantly on every rank, as the JAX package replicates them.
+Every step is differentiable (the collectives' backward is their
+adjoint, collectives.py).
 
-Every step is differentiable (the collectives' backward is their adjoint,
-collectives.py), so ``distributed_lml`` has a gradient: the hyperparameters
-enter through ``grad_sync`` and the replicated LML leaves through
-``replicated_out``, and every rank that calls backward() receives the
-full gradient.
+``distributed_lml`` does not go through the sweep. Each rank builds its
+block of K straight in block-cyclic order (rows over ('dp', 'r'), block
+size ``block_cyclic.block_size(n, R, C, chunk)``): the covariance tile
+kernel on the rows and columns of X that the block holds, so no relayout
+moves K. Under the span ``cugp.factorize`` it factors that block in place
+with block_cyclic's look-ahead schedule, keeps L there, and solves
+alpha = K^{-1} y by a distributed forward and back substitution (alpha
+replicated): LML = -1/2 |L^{-1} y|^2 - sum log L_ii - n/2 log 2 pi. Its
+gradient is the closed form of ``models/exact_gp._LML`` across the ranks
+(``_DistLML``, span ``cugp.chol_backward``, counter
+``lml_backward.distributed``): the rank's block of K^{-1} from the
+distributed triangular inverse and product (block_cyclic.trtri_ and
+lauum_, 2 n^3/3 in all, in the same buffer), then K_bar = g/2
+(alpha_rows alpha_cols^T - K^{-1}) on the lower blocks, the blocks below
+the diagonal counted twice for the mirrored ones above, and the
+covariance kernel's VJP of it (``CovTile``, in row tiles). The
+hyperparameters enter through ``grad_sync`` and the replicated LML leaves
+through ``replicated_out``: every rank that calls backward() receives
+the full gradient, all-reduced, the same bits on every rank. A rank holds
+one n/R x n/C buffer (K, then L, W = L^{-1}, K^{-1} and K_bar in turn)
+and the panels of one step.
 """
 
 from __future__ import annotations
@@ -37,8 +55,9 @@ from cugp_tpu_torch.models.exact_gp import LOG2PI
 from cugp_tpu_torch.ops import cholesky as chol_ops
 from cugp_tpu_torch.ops import kernels as kernel_ops
 from cugp_tpu_torch.ops import trsm as trsm_ops
-from cugp_tpu_torch.parallel import collectives
+from cugp_tpu_torch.parallel import block_cyclic, collectives
 from cugp_tpu_torch.parallel.mesh import AXES
+from cugp_tpu_torch.utils import profiling
 from cugp_tpu_torch.utils.params import tree_map
 
 ROWS = ("dp", "r")  # the row axes of the 2D layout (P(('dp','r'), 'c'))
@@ -70,13 +89,9 @@ def _gather_pieces(src_of, owners, g, shape_of, cat_dim):
     return torch.cat(pieces, dim=cat_dim)
 
 
-def _sweep(K_loc, mesh, chunk, y=None, want_L=True):
-    """The chunked right-looking sweep on this rank's 2D block.
-
-    y: optional replicated (n,) right-hand side; its forward substitution
-    rides the sweep (z_s = L_ss^{-1} y_s, then y[s+1:] -= P z_s on the
-    replicated panel). Returns (L_loc or None, sum of z_s^2 or None,
-    sum of log diag L)."""
+def _sweep(K_loc, mesh, chunk):
+    """The chunked right-looking sweep on this rank's 2D block; returns
+    the same block of L."""
     grow, gcol = mesh.group(ROWS), mesh.group("c")
     nr, nc = K_loc.shape
     n = nr * grow.size
@@ -87,7 +102,7 @@ def _sweep(K_loc, mesh, chunk, y=None, want_L=True):
     ro, co = grow.index * nr, gcol.index * nc
     chunk = min(chunk, n)
     A, r0 = K_loc, 0  # the trailing block; its first local row
-    L_cols, quad, logdet_half = [], None, 0.0
+    L_cols = []
     for o in range(0, n, chunk):
         b = min(chunk, n - o)
         # 1. the chunk's columns of my active rows, then its diagonal block
@@ -98,23 +113,17 @@ def _sweep(K_loc, mesh, chunk, y=None, want_L=True):
                               _owners(o, o + b, nr), grow,
                               lambda h: (h, b), 0)
         L_ss = chol_ops.cholesky(A_ss)
-        logdet_half = logdet_half + torch.sum(torch.log(torch.diagonal(L_ss)))
         # 2. my rows of the panel
         k_in = min(max(o + b - (ro + r0), 0), strip.shape[0])
         panel = strip[k_in:]
         if panel.shape[0]:
             panel = trsm_ops.solve_xlt(L_ss, panel)
-        if want_L:
-            top = max(ro + r0 - o, 0)
-            lcol = torch.cat([strip.new_zeros((r0, b)),
-                              L_ss[top:top + k_in], panel])
-            lo, hi = max(o, co), min(o + b, co + nc)
-            if hi > lo:
-                L_cols.append(lcol[:, lo - o:hi - o])
-        if y is not None:
-            z = trsm_ops.solve_lx(L_ss, y[:b])
-            q = torch.sum(z * z)
-            quad = q if quad is None else quad + q
+        top = max(ro + r0 - o, 0)
+        lcol = torch.cat([strip.new_zeros((r0, b)),
+                          L_ss[top:top + k_in], panel])
+        lo, hi = max(o, co), min(o + b, co + nc)
+        if hi > lo:
+            L_cols.append(lcol[:, lo - o:hi - o])
         if o + b == n:
             break
         # 3. the panel rows of every global row (zeros above the chunk's
@@ -126,10 +135,7 @@ def _sweep(K_loc, mesh, chunk, y=None, want_L=True):
         # 4. my part of the trailing update
         A = A[k_in:, A.shape[1] - (co + nc - cl):] - panel @ P[cl:co + nc].mT
         r0 += k_in
-        if y is not None:
-            y = y[b:] - P[o + b:] @ z
-    L_loc = torch.cat(L_cols, dim=1) if want_L else None
-    return L_loc, quad, logdet_half
+    return torch.cat(L_cols, dim=1)
 
 
 def distributed_cholesky(K_loc, mesh, chunk=8192, method="auto"):
@@ -137,7 +143,7 @@ def distributed_cholesky(K_loc, mesh, chunk=8192, method="auto"):
     (n/(dp*r), n/c) block (rows over ('dp', 'r'), columns over 'c'); the
     result is the same block of L. chunk: diagonal chunk size."""
     trsm_ops.check_method(method)
-    return _sweep(K_loc, mesh, chunk)[0]
+    return _sweep(K_loc, mesh, chunk)
 
 
 def covariance_2d(params, X_loc, mesh, kind="rbf", jitter=1e-6):
@@ -165,22 +171,107 @@ def covariance_2d(params, X_loc, mesh, kind="rbf", jitter=1e-6):
     return K, X
 
 
+def _covariance_cyclic(params, X, grid, kind, jitter):
+    """This rank's block of K(X, X) + noise diag in block-cyclic order,
+    through the covariance tile kernel. Returns (K_loc, diag_add): a
+    block whose rows are its columns takes the square route (the noise
+    inside the kernel; diag_add None); any other takes the cross route,
+    and diag_add (differentiable) is for the caller to add on the global
+    diagonal's entries (``_diagonal``)."""
+    dev = X.device
+    rows, cols = grid.rows_index(dev), grid.cols_index(dev)
+    if grid.R == grid.C and grid.my_r == grid.my_c:
+        return kernel_ops.train_covariance(params, X[rows], kind=kind,
+                                           jitter=jitter), None
+    return (kernel_ops.cross_covariance(params, X[rows], X[cols],
+                                        kind=kind),
+            torch.exp(params["log_noise_var"])
+            + jitter * kernel_ops.signal_scale(params))
+
+
+def _diagonal(grid, device):
+    """(local rows, local cols) of the global diagonal's entries that this
+    rank holds: the diagonals of its blocks (t, u) with t*R + my_r ==
+    u*C + my_c."""
+    b, off = grid.block, torch.arange(grid.block)
+    tu = [(t, (t * grid.R + grid.my_r) // grid.C) for t in range(grid.nbr)
+          if (t * grid.R + grid.my_r) % grid.C == grid.my_c]
+    rows = torch.cat([t * b + off for t, _ in tu] or [off[:0]])
+    cols = torch.cat([u * b + off for _, u in tu] or [off[:0]])
+    return rows.to(device), cols.to(device)
+
+
+class _DistLML(torch.autograd.Function):
+    """The distributed LML from the forward's factor (held in `fac`, the
+    rank's block-cyclic buffer, outside the graph), differentiable in the
+    rank's block of K and in the diagonal term the cross-route blocks
+    add: K_bar = g/2 (alpha alpha^T - K^{-1}) on this rank's entries."""
+
+    @staticmethod
+    def forward(ctx, k_loc, diag_add, lml, fac):
+        ctx.fac = fac
+        return lml.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        A, grid, alpha, diag = ctx.fac
+        ctx.fac = None
+        with profiling.span("cugp.chol_backward", A.device):
+            profiling.count("lml_backward.distributed")
+            # the parts of g the ranks hold, summed (collectives.py)
+            g = collectives.all_reduce(g.detach(), grid.gall)
+            block_cyclic.trtri_(A, grid)
+            block_cyclic.lauum_(A, grid)
+            A.addr_(alpha[grid.rows_index(A.device)],
+                    alpha[grid.cols_index(A.device)], beta=-1.0)
+            b = grid.block
+            A.view(grid.nbr, b, grid.nbc, b).mul_(
+                (0.5 * g) * grid.block_weights(A.device, A.dtype)[
+                    :, None, :, None])
+            g_diag = A[diag].sum() if ctx.needs_input_grad[1] else None
+        return A, g_diag, None, None
+
+
 def distributed_lml(params, X_loc, y_loc, mesh, kind="rbf", jitter=1e-6,
                     chunk=8192, cov_method="auto"):
-    """LML with the 2D-sharded covariance and the chunked distributed
-    Cholesky; the same value on every rank.
+    """LML with the covariance, its factor and the gradient's K^{-1}
+    sharded block-cyclically (the module docstring); the same value on
+    every rank.
 
-    X_loc, y_loc: the rank's rows over ('dp', 'r'). The solve against y
-    is the forward substitution that rides the sweep (the LML needs
-    |L^-1 y|^2); the O(N^2)/O(N^3) work is sharded. Differentiable in
-    params: every rank's backward() gives the full gradient.
+    X_loc, y_loc: the rank's rows over ('dp', 'r'); n must divide over
+    the (dp*r) x c grid. chunk: the largest block of the block-cyclic
+    layout (the block is the largest divisor of n/(dp*r) and n/c at most
+    chunk). Differentiable in params: every rank's backward() gives the
+    full gradient.
     """
     trsm_ops.check_method(cov_method)
     world = mesh.group(AXES)
     params = tree_map(lambda t: collectives.grad_sync(t, world), params)
-    K_loc, X = covariance_2d(params, X_loc, mesh, kind=kind, jitter=jitter)
-    y = collectives.all_gather(y_loc.detach(), mesh.group(ROWS))
-    _, quad, logdet_half = _sweep(K_loc, mesh, chunk, y=y, want_L=False)
-    n = X.shape[0]
-    lml = -0.5 * quad - logdet_half - 0.5 * n * LOG2PI
+    grow = mesh.group(ROWS)
+    with profiling.span("cugp.factorize", X_loc.device):
+        X = collectives.all_gather(X_loc.detach(), grow)
+        y = collectives.all_gather(y_loc.detach(), grow)
+        n = X.shape[0]
+        R, C = grow.size, mesh.group("c").size
+        block = block_cyclic.block_size(n, R, C, chunk)
+        grid = block_cyclic.Grid(mesh, n // block, block, rows=ROWS)
+        K_loc, diag_add = _covariance_cyclic(params, X, grid, kind, jitter)
+        diag = _diagonal(grid, X.device)
+        with torch.no_grad():
+            A = K_loc.detach()  # factored in place: K's buffer holds L
+            if diag_add is not None:
+                A[diag] += diag_add
+            block_cyclic.factor_(A, grid)
+            z = block_cyclic.tri_solve(A, grid, y)
+            logdet_half = collectives.all_reduce(
+                torch.sum(torch.log(A[diag])), grid.gall)
+            lml = -0.5 * torch.dot(z, z) - logdet_half - 0.5 * n * LOG2PI
+        if K_loc.requires_grad:
+            with torch.no_grad():
+                alpha = block_cyclic.tri_solve(A, grid, z, transpose=True)
+            if diag_add is None:
+                diag_add = K_loc.new_zeros(())
+            lml = _DistLML.apply(K_loc, diag_add, lml,
+                                 (A, grid, alpha, diag))
     return collectives.replicated_out(lml, world)
+

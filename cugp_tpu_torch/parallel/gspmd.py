@@ -9,9 +9,15 @@ collectives (DTensor's linalg coverage would redistribute unseen):
                block through the covariance tile kernel); the blocks are
                all-gathered and the factor is replicated (``ops.cholesky``
                on every rank), as XLA could not partition the Cholesky;
-  make_map_train_step  one Adam step on -LML over either backend, the
-               chunked distributed sweep (the honest sharded
-               factorization) or lml_sharded.
+  make_map_train_step  one Adam step on -LML over either backend:
+               "chunked", distributed_chol.distributed_lml (the sharded
+               factorization: K, its block-cyclic factor and the
+               gradient's K^{-1} sharded, the gradient in closed form,
+               2 n^3/3 for the inverse), or "gspmd", lml_sharded.
+
+A step is the span ``cugp.step`` (utils.profiling, recorded only in a
+profiler session); the chunked LML's factor and closed-form backward are
+its children ``cugp.factorize`` and ``cugp.chol_backward``.
 
 Layout: X and y rows over ('dp', 'r'), K blocks over (('dp', 'r'), 'c').
 """
@@ -27,6 +33,7 @@ from cugp_tpu_torch.ops import trsm as trsm_ops
 from cugp_tpu_torch.parallel import collectives, distributed_chol
 from cugp_tpu_torch.parallel.distributed_chol import ROWS
 from cugp_tpu_torch.parallel.mesh import AXES, Sharding
+from cugp_tpu_torch.utils import profiling
 from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 
 
@@ -86,8 +93,9 @@ def make_map_train_step(mesh, kind="rbf", jitter=1e-6, learning_rate=0.05,
     the rank's rows over ('dp', 'r').
 
     lml_backend: 'chunked' (distributed_chol.distributed_lml, the
-    sharded factorization) or 'gspmd' (lml_sharded: sharded covariance,
-    replicated factor).
+    sharded factorization and its closed-form gradient; chunk: the
+    largest block of its block-cyclic layout) or 'gspmd' (lml_sharded:
+    sharded covariance, replicated factor).
     """
     if lml_backend == "chunked":
         def lml(p, X, y):
@@ -105,17 +113,18 @@ def make_map_train_step(mesh, kind="rbf", jitter=1e-6, learning_rate=0.05,
             raise ValueError("step takes opt_state.params (the tensors its "
                              "Adam updates)")
         leaves = tree_leaves(params)
-        opt_state.opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = -lml(params, X_loc, y_loc)
-            loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in leaves]
-        for p, gr in zip(leaves, grads):
-            p.grad = gr
-        if opt_state.guard.apply(grads):
-            opt_state.opt.step()
-        map_opt._clamp(params)
+        with profiling.span("cugp.step", X_loc.device, root=True):
+            opt_state.opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                loss = -lml(params, X_loc, y_loc)
+                loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in leaves]
+            for p, gr in zip(leaves, grads):
+                p.grad = gr
+            if opt_state.guard.apply(grads):
+                opt_state.opt.step()
+            map_opt._clamp(params)
         return params, opt_state, loss.detach()
 
     return step, tx

@@ -15,6 +15,7 @@ refuses two ranks on one device). There is no silent switch:
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Optional
 
@@ -34,7 +35,7 @@ class RuntimeInfo:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, *, device="cuda",
-               backend=None):
+               backend=None, timeout: Optional[float] = None):
     """Bring up torch.distributed when running multi-process; no-op for
     one process.
 
@@ -44,6 +45,8 @@ def initialize(coordinator_address: Optional[str] = None,
     (RANK and WORLD_SIZE set) initializes from env://. device: "cuda"
     (one card per rank, LOCAL_RANK % device_count) or "cpu". backend:
     "nccl" or "gloo"; None picks NCCL for "cuda", gloo for "cpu".
+    timeout: seconds the group's joining and each of its collectives may
+    wait for the other ranks before failing (None: torch's default).
     Returns RuntimeInfo; its backend is the process group's, or the
     device type for a world of one that initialized nothing.
     """
@@ -61,6 +64,8 @@ def initialize(coordinator_address: Optional[str] = None,
         backend = "nccl" if device == "cuda" else "gloo"
     explicit = coordinator_address is not None
     from_env = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    kw = ({} if timeout is None
+          else {"timeout": datetime.timedelta(seconds=timeout)})
     if (explicit or from_env) and not dist.is_initialized():
         if explicit:
             url = (coordinator_address if "://" in coordinator_address
@@ -70,9 +75,9 @@ def initialize(coordinator_address: Optional[str] = None,
                                  "num_processes and process_id")
             dist.init_process_group(backend, init_method=url,
                                     world_size=num_processes,
-                                    rank=process_id)
+                                    rank=process_id, **kw)
         else:
-            dist.init_process_group(backend, init_method="env://")
+            dist.init_process_group(backend, init_method="env://", **kw)
     if dist.is_initialized():
         count, index = dist.get_world_size(), dist.get_rank()
         used = dist.get_backend()

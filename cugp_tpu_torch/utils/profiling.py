@@ -16,7 +16,9 @@ work (``cugp.step``, ``cugp.request``, ``cugp.factorize``,
 ``cugp.chol_backward``, ``cugp.precond_build``, ``cugp.cg_solve``,
 ``cugp.grad_sweep``) and ``count(site)`` counts an event (``host_read.*``:
 each read of a device value by the host, through ``read_bool`` and
-``read_float``). Both record only while a torch profiler session records
+``read_float``; ``lml_backward.*``: the LML backward a step took;
+``collective_bytes.<op>``: the bytes a collective moved on this rank,
+``parallel/collectives.py``). Both record only while a torch profiler session records
 (``torch.autograd.profiler._is_profiler_enabled``, the flag torch sets
 for every session, ``trace`` and the CLI's ``--profile`` among them);
 otherwise they cost that one flag read and do nothing. A recording span

@@ -218,3 +218,37 @@ def test_cov_tile_schedule(m, n, square, grid_cap):
 def test_cov_store_route(ldo, ptr, want):
     """16-byte stores need ldo % 4 == 0 and a 16-byte aligned output."""
     assert cov_cuda.route(ldo, ptr) == want
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batch"])
+@pytest.mark.parametrize("square", [True, False], ids=["square", "cross"])
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "matern32", "rq",
+                                  "linear"])
+def test_cov_tile_backward_in_row_tiles(kind, square, batched, monkeypatch):
+    """CovTile's backward, a row tile at a time (tiles of 5 rows, the last
+    ragged, the padding rows and columns inside tiles), equals the VJP of
+    the whole plain tile; the square route's diagonal stays where the
+    whole tile has it."""
+    g = torch.Generator().manual_seed(3)
+    bs = (3,) if batched else ()
+    m = 37
+    xs1 = torch.randn(*bs, m, 3, generator=g)
+    xs2 = xs1 if square else torch.randn(*bs, 29, 3, generator=g)
+    n = xs2.shape[-2]
+    scal = torch.tensor([1.3, 0.2, 1.7]).expand(*bs, 3).contiguous()
+    n1, n2 = m - 2, n - (2 if square else 1)
+    cot = torch.randn(*bs, m, n, generator=g)
+    ins = [t.clone().requires_grad_(True) for t in (xs1, xs2, scal)]
+    k = cov_cuda.cov_tile_plain(*ins, kind, square, n1, n2)
+    want = torch.autograd.grad(k, ins, cot)
+    monkeypatch.setattr(cov_cuda, "BACKWARD_TILE", 5 * n * (bs[0] if bs else 1))
+    got = cov_cuda.cov_tile_vjp(xs1, xs2, scal, kind, square, n1, n2, cot)
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    # through the autograd Function, square xs2 is xs1: one gradient
+    x = xs1.clone().requires_grad_(True)
+    out = cov_cuda.CovTile.apply(x, x if square else xs2, scal, kind, square,
+                                 n1, n2)
+    (gx,) = torch.autograd.grad(out, [x], cot)
+    torch.testing.assert_close(gx, want[0] + want[1] if square else want[0],
+                               rtol=1e-5, atol=1e-5)

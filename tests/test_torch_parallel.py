@@ -278,6 +278,53 @@ def _case_lml(meshes):
     return out
 
 
+# (dp, n, chunk): the closed-form LML's cases, several blocks a rank
+CLOSED_FORM = ((1, 384, 64), (2, 384, 40), (4, 384, 40))
+
+
+def _closed_form_problem(n):
+    X = _uniform(n, 3, 17)
+    rng = np.random.default_rng(18)
+    y = (np.sin(2.0 * X.sum(1)) + 0.05 * rng.standard_normal(n)).astype(
+        np.float32)
+    return X, y
+
+
+def _closed_form_params(kops):
+    p = kops.init_params(d=3, lengthscale=0.9, noise_var=0.01)
+    p["log_lengthscale"] = torch.log(torch.tensor([0.7, 1.1, 0.9]))
+    return p
+
+
+def _case_closed_form(meshes):
+    """The distributed LML's closed-form gradient on the Matern-3/2 kernel
+    (the benchmark's), and the block-cyclic inverse it takes, in float64
+    on the LML's layout (rows over ('dp', 'r'), columns over 'c')."""
+    from cugp_tpu_torch.ops import kernels as kops
+    from cugp_tpu_torch.parallel import block_cyclic, distributed_chol
+    from cugp_tpu_torch.parallel.mesh import Sharding
+
+    out = {}
+    for dp, n, chunk in CLOSED_FORM:
+        m = meshes[dp]
+        sp = Sharding(m, (("dp", "r"), None))
+        X, y = (torch.as_tensor(a) for a in _closed_form_problem(n))
+        out[f"lml_dp{dp}"] = _lml_grads(
+            lambda q: distributed_chol.distributed_lml(
+                q, sp.shard(X), sp.shard(y), m, kind="matern32",
+                chunk=chunk), _closed_form_params(kops))
+        A = torch.as_tensor(_spd(256, 23).astype(np.float64))
+        grid = block_cyclic.Grid(m, 256 // 16, 16, rows=("dp", "r"))
+        rows, cols = grid.rows_index(), grid.cols_index()
+        loc = A[rows][:, cols].clone()
+        with torch.no_grad():
+            block_cyclic.factor_(loc, grid)
+            block_cyclic.trtri_(loc, grid)
+            block_cyclic.lauum_(loc, grid)
+        out[f"inv_dp{dp}"] = (loc.numpy(), rows.numpy(), cols.numpy())
+    return out
+
+
 def _draw_arrays(num_chains, dim, transitions, seed):
     """The replayed draws of a sharded HMC run: the (C, D) initial jitter,
     then per transition the step jitter u (C,), the momentum (C, D) and
@@ -365,7 +412,7 @@ def _case_sampling(meshes):
 CASES = {"mesh": _case_mesh, "block_cyclic": _case_block_cyclic,
          "distributed_cholesky": _case_distributed_cholesky,
          "ring": _case_ring, "relayout": _case_relayout, "lml": _case_lml,
-         "sampling": _case_sampling}
+         "closed_form": _case_closed_form, "sampling": _case_sampling}
 
 
 def _worker(rank, world, tmp):
@@ -684,6 +731,70 @@ def test_distributed_lml_and_gradient(ranks, jmesh, dp):
         jk.init_params(d=1, lengthscale=0.8, noise_var=0.05))
     assert abs(val - jv) <= 1e-5 * abs(jv)
     assert np.abs(grad - jg).max() <= 1e-4 * np.abs(jg).max()
+
+
+@pytest.mark.parametrize("dp", [1, 2, 4])
+def test_closed_form_lml_matches_float64_reference(ranks, dp):
+    """The distributed LML's value and closed-form gradient on the
+    Matern-3/2 kernel against the benchmark's float64 reference
+    (portbench/reference/matern32.py; rtol 1e-5 for the value, 1e-4 of
+    the largest gradient component), the same bits on every rank."""
+    from cugp_tpu_torch.ops import kernels as tk
+    from portbench.reference import matern32
+
+    n = dict((d, n) for d, n, _ in CLOSED_FORM)[dp]
+    X, y = (torch.as_tensor(a) for a in _closed_form_problem(n))
+    vals = [r["closed_form"][f"lml_dp{dp}"] for r in ranks.results()]
+    for v, g in vals[1:]:
+        assert v == vals[0][0]
+        np.testing.assert_array_equal(g, vals[0][1])
+    val, grad = vals[0]
+    ref_v, ref_g = matern32.lml_and_grad(X, y, _closed_form_params(tk), 1e-6)
+    ref_g = np.concatenate([ref_g[k].reshape(-1).numpy() for k in
+                            ("log_lengthscale", "log_noise_var",
+                             "log_signal_var")])  # ravel_pytree's order
+    assert abs(val - ref_v) <= 1e-5 * abs(ref_v)
+    assert np.abs(grad - ref_g).max() <= 1e-4 * np.abs(ref_g).max()
+
+
+@pytest.mark.parametrize("dp", [1, 2, 4])
+def test_block_cyclic_inverse_matches_inv(ranks, dp):
+    """factor_, trtri_ and lauum_ on every rank's block-cyclic block, in
+    float64: the lower blocks, put back in global order, are those of
+    torch.linalg.inv (1e-10 of its largest entry)."""
+    A = _spd(256, 23).astype(np.float64)
+    want = torch.linalg.inv(torch.as_tensor(A)).numpy()
+    got = np.full_like(want, np.nan)
+    for res in ranks.results():
+        loc, rows, cols = res["closed_form"][f"inv_dp{dp}"]
+        lower = (rows[:, None] // 16) >= (cols[None, :] // 16)
+        sub = got[np.ix_(rows, cols)]
+        sub[lower] = loc[lower]
+        got[np.ix_(rows, cols)] = sub
+    lower = np.arange(256)[:, None] // 16 >= np.arange(256)[None, :] // 16
+    assert not np.isnan(got[lower]).any()
+    np.testing.assert_allclose(got[lower], want[lower], rtol=0,
+                               atol=1e-10 * np.abs(want).max())
+
+
+def test_four_device_reference_matches_dense():
+    """portbench/reference/matern32_dist4 (lower tiles over four "devices",
+    here the CPU four times, ragged tiles) equals the dense float64
+    reference to rounding."""
+    from portbench.reference import matern32, matern32_dist4
+
+    X, y = (torch.as_tensor(a) for a in _closed_form_problem(300))
+    p = {"log_lengthscale": torch.log(torch.tensor([0.7, 1.1, 0.9])),
+         "log_signal_var": torch.tensor(0.2),
+         "log_noise_var": torch.tensor(-3.0)}
+    v0, g0 = matern32.lml_and_grad(X, y, p, 1e-6)
+    for tile in (64, 77, 300):
+        v1, g1 = matern32_dist4.lml_and_grad(X, y, p, 1e-6, ["cpu"] * 4,
+                                             tile=tile)
+        assert abs(v1 - v0) <= 1e-12 * abs(v0)
+        for k in g0:
+            np.testing.assert_allclose(g1[k].numpy(), g0[k].numpy(),
+                                       rtol=1e-10, atol=1e-10)
 
 
 def test_gspmd_lml_sharded(ranks, jmesh):

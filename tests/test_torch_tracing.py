@@ -205,3 +205,45 @@ def test_a_span_on_another_thread_finds_its_step():
     step, child = profiling.spans()
     assert child.parent is step and child.op == step.op == 0
     assert profiling.counts() == {"host_read.test": 1}
+
+
+def _sharded_step():
+    """One sharded Adam step of the distributed tier in a world of one
+    rank (make_mesh without a process group: every collective returns
+    its input), on the block-cyclic layout with several blocks."""
+    from cugp_tpu_torch.ops import kernels as kops
+    from cugp_tpu_torch.parallel import gspmd, mesh as mesh_lib
+
+    X, y = _data()
+    step, tx = gspmd.make_map_train_step(mesh_lib.make_mesh(),
+                                         kind="matern32", chunk=32,
+                                         lml_backend="chunked")
+    state = tx.init(kops.init_params(d=3))
+    params, state, loss = step(state.params, state, X, y)
+    return [loss, *params.values()]
+
+
+def test_sharded_step_records_its_spans_and_collectives():
+    """The sharded step is a ``cugp.step`` holding the distributed LML's
+    ``cugp.factorize`` and its closed-form backward ``cugp.chol_backward``
+    (counted as ``lml_backward.distributed``), with every collective's
+    bytes counted (a group of one moves 0); without a session it records
+    nothing and gives the same bits."""
+    _empty_session()
+    plain = _sharded_step()
+    assert profiling.spans() == [] and profiling.counts() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = _sharded_step()
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
+    got = [(s.name, s.parent.name if s.parent else None)
+           for s in profiling.spans()]
+    assert got == [("cugp.step", None), ("cugp.factorize", "cugp.step"),
+                   ("cugp.chol_backward", "cugp.step")]
+    counts = profiling.counts()
+    assert counts["lml_backward.distributed"] == 1
+    moved = {k: v for k, v in counts.items()
+             if k.startswith("collective_bytes.")}
+    assert {"collective_bytes.all_gather", "collective_bytes.broadcast",
+            "collective_bytes.all_reduce"} <= set(moved)
+    assert all(v == 0 for v in moved.values())
