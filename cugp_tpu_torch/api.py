@@ -23,7 +23,7 @@ import torch
 from cugp_tpu_torch.models import exact_gp
 from cugp_tpu_torch.ops import kernels as kernel_ops
 from cugp_tpu_torch.utils import profiling
-from cugp_tpu_torch.utils.params import tree_map
+from cugp_tpu_torch.utils.params import tree_leaves, tree_map
 
 
 def _as_f32(a, device):
@@ -51,6 +51,11 @@ def _probe_from_struct(s):
     return np.zeros(())
 
 
+# the GP's attributes that its kept factor depends on
+_FACTOR_STATE = frozenset(("params", "X", "y", "kind", "jitter", "method",
+                           "basis"))
+
+
 @dataclasses.dataclass
 class GP:
     """Exact Gaussian-process regression.
@@ -65,6 +70,11 @@ class GP:
     normalize_y: standardize targets internally.
     device: where data, hyperparameters and computation live ("cuda" by
         default; "cpu" runs the kernels' plain versions).
+
+    predict keeps the factor (L, alpha) of the conditioned state and
+    reuses it on later requests (``_kept_factor``). Assigning any of
+    params, X, y, kind, jitter, method or basis drops it, and so does
+    entry into every method that sets that state.
     """
 
     kind: str = "rbf"
@@ -85,6 +95,44 @@ class GP:
         if self.basis not in (None, "constant", "linear"):
             raise ValueError(f"unknown basis {self.basis!r}")
         self.device = torch.device(self.device)
+
+    def __setattr__(self, name, value):
+        if name in _FACTOR_STATE:
+            object.__setattr__(self, "_kept", None)
+        object.__setattr__(self, name, value)
+
+    def _state(self):
+        """The tensors the factor depends on (params' leaves, X, y) and
+        their in-place version counters; None when one is an inference
+        tensor, which has no counter."""
+        held = (*tree_leaves(self.params), self.X, self.y)
+        if any(t.is_inference() for t in held):
+            return None
+        return held, tuple(t._version for t in held)
+
+    def _kept_factor(self):
+        """(L, alpha) of the conditioned state: factored (the span
+        ``cugp.factorize``) on the first request and kept, without
+        autograd, until the state changes. A change through assignment
+        drops it; a params entry replaced or a held tensor edited in
+        place shows in the kept record of the tensors and their version
+        counters, compared on the host (the record holds the tensors, so
+        no id is reused). Counted as ``factor_cache.hit`` / ``.miss``."""
+        state = self._state()
+        if self._kept is not None and state is not None:
+            (held, versions), factor = self._kept
+            if versions == state[1] and all(
+                    a is b for a, b in zip(held, state[0])):
+                profiling.count("factor_cache.hit")
+                return factor
+        profiling.count("factor_cache.miss")
+        self._kept = None
+        with torch.no_grad():
+            factor = exact_gp._factorize(self.params, self.X, self.y,
+                                         self.kind, self.jitter, self.method)
+        if state is not None:
+            self._kept = (state, factor)
+        return factor
 
     def _data(self, X, y):
         """Validate; with normalize_y, standardize targets and record the
@@ -132,6 +180,7 @@ class GP:
         ("loss", "lml", ...)."""
         from cugp_tpu_torch.inference import map_opt
 
+        self._kept = None
         X, y = self._data(X, y)
         if init is None:
             init = kernel_ops.default_init(self.kind, d=X.shape[1],
@@ -151,6 +200,7 @@ class GP:
 
     def condition(self, X, y, params=None):
         """Attach data (and optionally hyperparameters) without fitting."""
+        self._kept = None
         self.X, self.y = self._data(X, y)
         if params is not None:
             self.params = self._params(params)
@@ -196,7 +246,8 @@ class GP:
     def predict(self, Xs, *, include_noise=False, full_cov=False,
                 batch=4096):
         """Posterior mean/variance at Xs, in test batches of `batch` rows
-        against one factorization (full_cov: the full covariance). With a
+        against the kept factorization (full_cov: the full covariance, from
+        a factorization of its own). With a
         basis the semiparametric corrections apply (one batch) and the
         fitted coefficients land in self.beta. The call is the root span
         ``cugp.request``."""
@@ -223,8 +274,7 @@ class GP:
                     self.params, self.X, self.y, Xs, kind=self.kind,
                     jitter=self.jitter, method=self.method)
                 return self._out_mean(mu), self._out_var(cov)
-            L, alpha = exact_gp._factorize(self.params, self.X, self.y,
-                                           self.kind, self.jitter, self.method)
+            L, alpha = self._kept_factor()
             mus, vars_ = [], []
             for lo in range(0, Xs.shape[0], batch):
                 mu, var = exact_gp.predict_from_factor(
@@ -381,6 +431,7 @@ class GP:
         sample_hyperparams."""
         from cugp_tpu_torch.inference import vi
 
+        self._kept = None
         return vi.fit(
             self._sampler_init(init), self.X, self.y, kind=self.kind,
             jitter=self.jitter, method=self.method, steps=steps,
@@ -394,6 +445,7 @@ class GP:
         sparse posterior. Returns the info dict ("loss", "elbo")."""
         from cugp_tpu_torch.models import sgpr
 
+        self._kept = None
         X, y = self._data(X, y)
         init = self.params or kernel_ops.default_init(
             self.kind, d=X.shape[1], device=self.device)
@@ -420,6 +472,7 @@ class GP:
     def fit_classifier(self, X, y, **kw):
         """A GPClassifier with this GP's kind, jitter, method and device,
         fitted to (X, y)."""
+        self._kept = None
         clf = GPClassifier(kind=self.kind, jitter=self.jitter,
                            method=self.method, device=self.device)
         clf.fit(X, y, **kw)
@@ -435,6 +488,7 @@ class GP:
         info dict."""
         from cugp_tpu_torch.inference import map_opt
 
+        self._kept = None
         X, y = self._data(X, y)
         if init is None:
             init = kernel_ops.default_init(self.kind, d=X.shape[1],

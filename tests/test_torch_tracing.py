@@ -45,7 +45,15 @@ def _predict(gp, X, y):
     return list(gp.predict(Xs))
 
 
-PATHS = {"fit": _fit, "fit_iterative": _fit_iterative, "predict": _predict}
+def _predict_twice(gp, X, y):
+    """Two requests on one state: the second reuses the first's factor."""
+    first = _predict(gp, X, y)
+    Xs, _ = _data(n=24, seed=2)
+    return first + list(gp.predict(Xs))
+
+
+PATHS = {"fit": _fit, "fit_iterative": _fit_iterative, "predict": _predict,
+         "predict_twice": _predict_twice}
 
 # each path's spans: (name, its parent's name) in the order they begin
 EXPECTED = {
@@ -58,6 +66,9 @@ EXPECTED = {
     + [("cugp.step", None), ("cugp.cg_solve", "cugp.step"),
        ("cugp.grad_sweep", "cugp.step")] * (STEPS - 1),
     "predict": [("cugp.request", None), ("cugp.factorize", "cugp.request")],
+    "predict_twice": [("cugp.request", None),
+                      ("cugp.factorize", "cugp.request"),
+                      ("cugp.request", None)],
 }
 
 
@@ -127,8 +138,15 @@ def test_host_reads_are_counted_where_they_are_made():
     assert profiling.counts() == {"host_read.finite_guard": STEPS,
                                   "host_read.chol_ladder": STEPS,
                                   "lml_backward.closed_form": STEPS}
+    # the first request factors: the ladder's read and a miss of the kept
+    # factor; a second request on the same state hits it and reads nothing
     _run("predict", traced=True)
-    assert profiling.counts() == {"host_read.chol_ladder": 1}
+    assert profiling.counts() == {"host_read.chol_ladder": 1,
+                                  "factor_cache.miss": 1}
+    _run("predict_twice", traced=True)
+    assert profiling.counts() == {"host_read.chol_ladder": 1,
+                                  "factor_cache.miss": 1,
+                                  "factor_cache.hit": 1}
     X, y = _data()
     with profile(activities=[ProfilerActivity.CPU]):
         GP(kind="matern32", device="cpu", normalize_y=True).condition(X, y)
@@ -186,7 +204,8 @@ def test_a_new_session_holds_only_its_own_record():
     second = profiling.spans()
     assert [s.name for s in second] == [n for n, _ in EXPECTED["predict"]]
     assert not set(map(id, first)) & set(map(id, second))
-    assert profiling.counts() == {"host_read.chol_ladder": 1}
+    assert profiling.counts() == {"host_read.chol_ladder": 1,
+                                  "factor_cache.miss": 1}
     assert second[0].op == 0  # ids start again with the session
 
 
