@@ -2,29 +2,33 @@
 ``cugp_tpu/parallel/block_cyclic.py``.
 
 The ScaLAPACK-style factorization: block (i, j) of the matrix lives on
-rank (i mod R, j mod C) of the ('r', 'c') grid; each panel step factors
-the diagonal block, moves the panel along the mesh axes, and every rank
-applies its local trailing SYRK update. The layout transition to and from
-cyclic order is relayout.to_block_cyclic / from_block_cyclic (one
-all_to_all per mesh axis), or, with relayout="gather", the global
-permutation of the gathered matrix (the comparison path).
+rank (i mod R, j mod C) of the grid; each panel step factors the
+diagonal block, moves the panel along the mesh axes, and every rank
+applies its local trailing SYRK update. ``factor_`` is the one body, a
+look-ahead schedule: panel k+1's column strip takes update k first, and
+its broadcast along 'c' is started (``async_op``) before the bulk
+trailing update of panel k, so the next panel travels while the update
+runs; the panels move by broadcasts (no all_reduce), and each update
+touches only the trailing blocks on or below the block diagonal (one
+GEMM a local block-row: n^3/3 in all); the strictly-upper blocks keep
+stale values.
 
-Two schedules:
-  pipelined=True  the look-ahead: panel k+1's column strip takes update k
-                  first, and its broadcast along 'c' is started
-                  (``async_op``) before the bulk trailing update of panel
-                  k, so the next panel travels while the update runs; the
-                  panels move by broadcasts (no all_reduce), and each
-                  update touches only the trailing blocks on or below the
-                  block diagonal (one GEMM a local block-row: n^3/3 in
-                  all); the strictly-upper blocks keep stale values;
-  pipelined=False the legacy reference: masked all_reduce broadcasts and a
-                  full-size masked update every panel.
+Both Cholesky entry points take and return a rank's 2D-contiguous block:
+``block_cyclic_cholesky`` (rows over 'r') and
+``distributed_chol.distributed_cholesky`` (rows over ('dp', 'r')). Both
+go through ``_cholesky_2d``: the move to cyclic order
+(relayout.to_block_cyclic's exchange, one all_to_all along the grid's
+rows and one along 'c', or, with relayout="gather", the global
+permutation of the gathered matrix, the comparison path), ``factor_``,
+and the move back.
 
-Divergences from the JAX package, neither of which changes the function:
+Divergences from the JAX package, none of which changes the function:
 the diagonal block and the panel solve run ``ops.cholesky`` and
 ``ops.trsm`` (the potrf and TRSM kernels) where JAX calls
-``method="xla"``; and JAX's split between a static unroll (up to
+``method="xla"``; JAX's ``pipelined=False`` selects its legacy body
+(masked all_reduce broadcasts, a full-size update every panel), which
+the port does not keep: ``pipelined`` is accepted (a bool) and changes
+nothing; and JAX's split between a static unroll (up to
 ``_STATIC_UNROLL_MAX_NB`` panels) and a chunked-rolled body bounds its
 trace size, which eager torch does not have: one loop serves every panel
 count, and ``chunk`` is accepted (a positive int) and changes nothing.
@@ -150,11 +154,11 @@ class Grid:
         return q.reshape(-1, b)
 
     def lower_mask(self, A_loc):
-        gr = self.rows_index().numpy()
-        gc = self.cols_index().numpy()
-        mask = torch.as_tensor(gr[:, None] >= gc[None, :],
-                               device=A_loc.device)
-        return torch.where(mask, A_loc, 0.0)
+        """A_loc with the entries above the global diagonal zeroed (the
+        mask built on A_loc's device, not on the host)."""
+        gr = self.rows_index(A_loc.device)
+        gc = self.cols_index(A_loc.device)
+        return torch.where(gr[:, None] >= gc[None, :], A_loc, 0.0)
 
     def block_weights(self, device, dtype=torch.float32):
         """(nbr, nbc): 2 below the block diagonal, 1 on it, 0 above; a
@@ -176,32 +180,6 @@ def _sub_lower_(A, panel, q, grid, r_off, c_off):
             A[t * b:(t + 1) * b, c_off * b:hi * b].addmm_(
                 panel[(t - r_off) * b:(t - r_off + 1) * b],
                 q[:(hi - c_off) * b].mT, alpha=-1.0)
-
-
-def _factor_local(A, grid):
-    """Legacy body: masked all_reduce broadcasts, full-size updates."""
-    b, R, C = grid.block, grid.R, grid.C
-    g_row = torch.as_tensor(np.repeat(grid.row_blocks(), b), device=A.device)
-    for k in range(grid.nb):
-        r_k, c_k, kb_r, kb_c = k % R, k % C, k // R, k // C
-        strip = A[:, kb_c * b:(kb_c + 1) * b]
-        strip = strip.clone() if grid.my_c == c_k else torch.zeros_like(strip)
-        strip = collectives.all_reduce(strip, grid.gc)
-        diag = strip[kb_r * b:(kb_r + 1) * b]
-        diag = (diag.clone() if grid.my_r == r_k
-                else torch.zeros_like(diag))
-        l_kk = chol_ops.cholesky(collectives.all_reduce(diag, grid.gr))
-        panel = trsm_ops.solve_xlt(l_kk, strip)
-        panel = torch.where((g_row > k)[:, None], panel, 0.0)
-        if grid.my_c == c_k:
-            new = panel.clone()
-            if grid.my_r == r_k:
-                new[kb_r * b:(kb_r + 1) * b] = l_kk
-            A[:, kb_c * b:(kb_c + 1) * b] = new
-        panel_all = collectives.all_gather(panel[None], grid.gr)
-        q = grid.transpose_panel(panel_all, k, 0, 0)
-        A -= panel @ q.mT
-    return A
 
 
 def factor_(A, grid):
@@ -356,6 +334,37 @@ def lauum_(A, grid):
     return A
 
 
+def _cholesky_2d(K_loc, mesh, rows, block, relayout="all_to_all"):
+    """L's block from K's: K_loc is this rank's 2D-contiguous block (rows
+    over the mesh axis or axes `rows`, columns over 'c'), n divisible by
+    block times the rows' and the columns' rank counts. Moves it to
+    block-cyclic order, factors it with factor_ and moves it back."""
+    R, C = mesh.axis_size(rows), mesh.shape["c"]
+    n = K_loc.shape[0] * R
+    if (K_loc.shape[1] * C != n or n % (block * R) or n % (block * C)):
+        raise ValueError(
+            f"n={n} (local block {tuple(K_loc.shape)}) must be square over "
+            f"the grid and divisible by block*R={block * R} and "
+            f"block*C={block * C}")
+    grid = Grid(mesh, n // block, block, rows=rows)
+    spec = Sharding(mesh, (rows, "c"))
+    with torch.no_grad():
+        if relayout == "all_to_all":
+            Kp = relayout_lib._cyclic(K_loc, block, grid.gr, grid.gc, True)
+        elif relayout == "gather":
+            row_perm = cyclic_permutation(grid.nb, R, block)
+            col_perm = cyclic_permutation(grid.nb, C, block)
+            Kp = spec.shard(spec.gather(K_loc)[row_perm][:, col_perm])
+        else:
+            raise ValueError(f"unknown relayout: {relayout}")
+        Lp = grid.lower_mask(factor_(Kp.clone(), grid))
+        if relayout == "all_to_all":
+            return relayout_lib._cyclic(Lp, block, grid.gr, grid.gc, False)
+        L = spec.gather(Lp)[_inverse_perm(row_perm)][:, _inverse_perm(
+            col_perm)]
+        return spec.shard(L)
+
+
 def block_cyclic_cholesky(K_loc, mesh, block=128, pipelined=True, chunk=8,
                           relayout="all_to_all"):
     """Lower Cholesky of K through the block-cyclic algorithm.
@@ -364,37 +373,14 @@ def block_cyclic_cholesky(K_loc, mesh, block=128, pipelined=True, chunk=8,
     replicated over 'dp'), n divisible by block*R and block*C. Returns
     the same block of L, in natural (unpermuted) order.
 
-    pipelined: the look-ahead schedule (True) or the legacy reference
-    (False), see the module docstring. relayout: "all_to_all" (the
-    scheduled exchange, relayout.py) or "gather" (the global permutation
-    of the all-gathered matrix). chunk: the JAX package's trace-size knob;
-    accepted and unused here.
+    relayout: "all_to_all" (the scheduled exchange, relayout.py) or
+    "gather" (the global permutation of the all-gathered matrix).
+    pipelined and chunk: the JAX package's schedule and trace-size knobs;
+    accepted (a bool, a positive int) and unused here: every call runs
+    the look-ahead body (the module docstring).
     """
+    if not isinstance(pipelined, bool):
+        raise ValueError(f"pipelined must be a bool, got {pipelined!r}")
     if not (isinstance(chunk, int) and chunk > 0):
         raise ValueError(f"chunk must be a positive int, got {chunk!r}")
-    R, C = mesh.shape["r"], mesh.shape["c"]
-    n = K_loc.shape[0] * R
-    if (K_loc.shape[1] * C != n or n % (block * R) or n % (block * C)):
-        raise ValueError(
-            f"n={n} (local block {tuple(K_loc.shape)}) must be square over "
-            f"the grid and divisible by block*R={block * R} and "
-            f"block*C={block * C}")
-    nb = n // block
-    grid = Grid(mesh, nb, block)
-    spec = Sharding(mesh, ("r", "c"))
-    with torch.no_grad():
-        if relayout == "all_to_all":
-            Kp = relayout_lib.to_block_cyclic(K_loc, mesh, block)
-        elif relayout == "gather":
-            row_perm = cyclic_permutation(nb, R, block)
-            col_perm = cyclic_permutation(nb, C, block)
-            Kp = spec.shard(spec.gather(K_loc)[row_perm][:, col_perm])
-        else:
-            raise ValueError(f"unknown relayout: {relayout}")
-        body = factor_ if pipelined else _factor_local
-        Lp = grid.lower_mask(body(Kp.clone(), grid))
-        if relayout == "all_to_all":
-            return relayout_lib.from_block_cyclic(Lp, mesh, block)
-        L = spec.gather(Lp)[_inverse_perm(row_perm)][:, _inverse_perm(
-            col_perm)]
-        return spec.shard(L)
+    return _cholesky_2d(K_loc, mesh, "r", block, relayout)

@@ -1,32 +1,19 @@
 """Distributed Cholesky over the mesh, as
 ``cugp_tpu/parallel/distributed_chol.py``.
 
-A chunked right-looking sweep over the 2D layout (rows over ('dp', 'r'),
-columns over 'c'). The JAX package writes it under GSPMD sharding
-constraints and lets XLA place the collectives; here they are explicit.
-For each diagonal chunk s (size B_c, e.g. 8192):
+The 2D layout holds rows over ('dp', 'r') and columns over 'c'. The JAX
+package factors it with a chunked right-looking sweep under GSPMD
+sharding constraints and lets XLA place the collectives. Here
+``distributed_cholesky`` runs block_cyclic's look-ahead factorization
+on it: the rank's 2D block moves to block-cyclic order (rows over ('dp',
+'r'), block size ``block_cyclic.block_size(n, R, C, chunk)``), is
+factored in place with ``block_cyclic.factor_`` and moves back
+(``block_cyclic._cholesky_2d``, which ``block_cyclic_cholesky`` shares).
+Its L carries no autograd graph; the LML's gradient is the closed form
+below.
 
-  1. the chunk's columns reach every rank of a mesh row (a broadcast
-     along 'c' from each column owner), its diagonal block every rank (a
-     broadcast along the rows from each row owner), and each rank factors
-     the diagonal block itself with ``ops.cholesky`` (the potrf kernel);
-  2. each rank solves its own rows of the panel, P = K[s+1:, s]
-     L_ss^{-T}, with ``ops.trsm`` (the TRSM kernel);
-  3. the panel is all-gathered along the rows, so each rank holds the
-     panel rows of its columns;
-  4. each rank applies its part of the SYRK update K[s+1:, s+1:] -= P
-     P^T with one ``torch.matmul``.
-
-The layout stays where it is: a rank's trailing block shrinks as the
-sweep passes its rows and columns (the block-cyclic layout of
-block_cyclic.py is the one that balances it). The diagonal chunks are
-factored redundantly on every rank, as the JAX package replicates them.
-Every step is differentiable (the collectives' backward is their
-adjoint, collectives.py).
-
-``distributed_lml`` does not go through the sweep. Each rank builds its
-block of K straight in block-cyclic order (rows over ('dp', 'r'), block
-size ``block_cyclic.block_size(n, R, C, chunk)``): the covariance tile
+``distributed_lml`` builds each rank's block of K straight in
+block-cyclic order (the same rows and block size): the covariance tile
 kernel on the rows and columns of X that the block holds, so no relayout
 moves K. Under the span ``cugp.factorize`` it factors that block in place
 with block_cyclic's look-ahead schedule, keeps L there, and solves
@@ -52,7 +39,6 @@ from __future__ import annotations
 import torch
 
 from cugp_tpu_torch.models.exact_gp import LOG2PI
-from cugp_tpu_torch.ops import cholesky as chol_ops
 from cugp_tpu_torch.ops import kernels as kernel_ops
 from cugp_tpu_torch.ops import trsm as trsm_ops
 from cugp_tpu_torch.parallel import block_cyclic, collectives
@@ -63,87 +49,15 @@ from cugp_tpu_torch.utils.params import tree_map
 ROWS = ("dp", "r")  # the row axes of the 2D layout (P(('dp','r'), 'c'))
 
 
-def _owners(lo, hi, width):
-    """[(owner, a, b)]: the owners of global range [lo, hi) when owner j
-    holds [j*width, (j+1)*width), with the range in its local indices."""
-    return [(j, max(lo, j * width) - j * width,
-             min(hi, (j + 1) * width) - j * width)
-            for j in range(lo // width, -(-hi // width))]
-
-
-def _placeholder(like, shape):
-    """Zeros of `shape` that require grad exactly when `like` does: what a
-    non-source rank hands a broadcast, so that every rank records the same
-    autograd nodes (and runs the same collectives in backward)."""
-    return like.new_zeros(shape) + like[:0].sum()
-
-
-def _gather_pieces(src_of, owners, g, shape_of, cat_dim):
-    """Concatenate the pieces of `owners`, each broadcast along g from its
-    owner (src_of(a, b) on the owner, a placeholder elsewhere)."""
-    pieces = []
-    for j, a, b in owners:
-        src = src_of(a, b) if j == g.index else _placeholder(
-            src_of(0, 0), shape_of(b - a))
-        pieces.append(collectives.broadcast(src, g, j))
-    return torch.cat(pieces, dim=cat_dim)
-
-
-def _sweep(K_loc, mesh, chunk):
-    """The chunked right-looking sweep on this rank's 2D block; returns
-    the same block of L."""
-    grow, gcol = mesh.group(ROWS), mesh.group("c")
-    nr, nc = K_loc.shape
-    n = nr * grow.size
-    if nc * gcol.size != n:
-        raise ValueError(f"local block {tuple(K_loc.shape)} is not a "
-                         f"({grow.size} x {gcol.size}) grid's block of a "
-                         "square matrix")
-    ro, co = grow.index * nr, gcol.index * nc
-    chunk = min(chunk, n)
-    A, r0 = K_loc, 0  # the trailing block; its first local row
-    L_cols = []
-    for o in range(0, n, chunk):
-        b = min(chunk, n - o)
-        # 1. the chunk's columns of my active rows, then its diagonal block
-        strip = _gather_pieces(lambda a, e: A[:, :e - a],
-                               _owners(o, o + b, nc), gcol,
-                               lambda w: (A.shape[0], w), 1)
-        A_ss = _gather_pieces(lambda a, e: strip[:e - a],
-                              _owners(o, o + b, nr), grow,
-                              lambda h: (h, b), 0)
-        L_ss = chol_ops.cholesky(A_ss)
-        # 2. my rows of the panel
-        k_in = min(max(o + b - (ro + r0), 0), strip.shape[0])
-        panel = strip[k_in:]
-        if panel.shape[0]:
-            panel = trsm_ops.solve_xlt(L_ss, panel)
-        top = max(ro + r0 - o, 0)
-        lcol = torch.cat([strip.new_zeros((r0, b)),
-                          L_ss[top:top + k_in], panel])
-        lo, hi = max(o, co), min(o + b, co + nc)
-        if hi > lo:
-            L_cols.append(lcol[:, lo - o:hi - o])
-        if o + b == n:
-            break
-        # 3. the panel rows of every global row (zeros above the chunk's
-        # end), then those of my trailing columns
-        P = collectives.all_gather(
-            torch.cat([panel.new_zeros((nr - panel.shape[0], b)), panel]),
-            grow)
-        cl = max(o + b, co)
-        # 4. my part of the trailing update
-        A = A[k_in:, A.shape[1] - (co + nc - cl):] - panel @ P[cl:co + nc].mT
-        r0 += k_in
-    return torch.cat(L_cols, dim=1)
-
-
 def distributed_cholesky(K_loc, mesh, chunk=8192, method="auto"):
     """Lower Cholesky factor of K from its 2D blocks: K_loc is this rank's
     (n/(dp*r), n/c) block (rows over ('dp', 'r'), columns over 'c'); the
-    result is the same block of L. chunk: diagonal chunk size."""
+    result is the same block of L, with no autograd graph. chunk: the
+    largest block of the block-cyclic layout, as distributed_lml's."""
     trsm_ops.check_method(method)
-    return _sweep(K_loc, mesh, chunk)
+    R, C = mesh.axis_size(ROWS), mesh.shape["c"]
+    block = block_cyclic.block_size(K_loc.shape[0] * R, R, C, chunk)
+    return block_cyclic._cholesky_2d(K_loc, mesh, ROWS, block)
 
 
 def covariance_2d(params, X_loc, mesh, kind="rbf", jitter=1e-6):

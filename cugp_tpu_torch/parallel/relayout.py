@@ -15,8 +15,9 @@ convention: rank (r, c) of the row-sharded layout holds global rows
 contiguous n/R row band of mesh row r.
 
 The 2D-contiguous <-> 2D-block-cyclic transition (block (i, j) on rank
-(i mod R, j mod C), block_cyclic.py's ownership): along each mesh axis
-every rank sorts its local blocks by destination, exchanges them in ONE
+(i mod R, j mod C), block_cyclic.py's ownership): along the grid's rows
+(one mesh axis, or several such as ('dp', 'r')) and along 'c', every
+rank sorts its local blocks by destination, exchanges them in ONE
 all_to_all (padded to ceil(nb_local / P) blocks a peer when P does not
 divide nb_local), and compacts what it received into cyclic order.
 
@@ -98,15 +99,16 @@ def _cyclic_inv_exchange(blocks, g):
     return _exchange(blocks, g, dest * m + rank, p * m + j)
 
 
-def _cyclic(A_loc, mesh, block, fwd):
-    R, C = mesh.shape["r"], mesh.shape["c"]
+def _cyclic(A_loc, block, gr, gc, fwd):
+    """The 2D-contiguous <-> block-cyclic exchange of this rank's block
+    (forward with fwd) along the groups of the grid's rows (gr) and its
+    columns (gc)."""
     rows, cols = A_loc.shape
     if rows % block or cols % block:
         raise ValueError(f"local block ({rows}, {cols}) is not a multiple "
-                         f"of block={block} (R={R}, C={C})")
+                         f"of block={block} (R={gr.size}, C={gc.size})")
     ex = _cyclic_fwd_exchange if fwd else _cyclic_inv_exchange
     a = A_loc
-    gr, gc = mesh.group("r"), mesh.group("c")
     if gr.size > 1:
         a = ex(a.reshape(rows // block, block, cols), gr).reshape(rows, cols)
     if gc.size > 1:
@@ -119,9 +121,9 @@ def to_block_cyclic(A_loc, mesh, block):
     """The 2D-contiguous block of A -> this rank's block of the permuted
     matrix A[row_perm][:, col_perm] (block_cyclic.cyclic_permutation),
     by one all_to_all along 'r' and one along 'c'."""
-    return _cyclic(A_loc, mesh, block, True)
+    return _cyclic(A_loc, block, mesh.group("r"), mesh.group("c"), True)
 
 
 def from_block_cyclic(A_loc, mesh, block):
     """Inverse of to_block_cyclic (cyclic order back to natural order)."""
-    return _cyclic(A_loc, mesh, block, False)
+    return _cyclic(A_loc, block, mesh.group("r"), mesh.group("c"), False)

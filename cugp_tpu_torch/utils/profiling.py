@@ -224,9 +224,13 @@ class _Span:
         self.name, self.root = name, root
         self.cuda = device is not None and torch.device(device).type == "cuda"
 
+    # The host stamps sit right beside the profiler event's own enter and
+    # exit, outside the lock, so that a wait for the lock (or the GIL)
+    # under load falls outside the pair and not between them.
     def __enter__(self):
         self.rf = _autograd_profiler.record_function(self.name)
         self.rf.__enter__()
+        t0_ns = time.time_ns()
         events = ((torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) if self.cuda
                   else None)
@@ -238,7 +242,7 @@ class _Span:
             self.span = SpanRecord(self.name, parent, op, events)
             rec.spans.append(self.span)
             rec.open.append(self.span)
-        self.span.t0_ns = time.time_ns()
+        self.span.t0_ns = t0_ns
         if events is not None:
             events[0].record()
         return self.span
@@ -247,13 +251,13 @@ class _Span:
         s = self.span
         if s._events is not None:
             s._events[1].record()
-        s.t1_ns = time.time_ns()
         with _RECORD.lock:
             # another thread's spans may have opened since this one
             for i in range(len(_RECORD.open) - 1, -1, -1):
                 if _RECORD.open[i] is s:
                     del _RECORD.open[i]
                     break
+        s.t1_ns = time.time_ns()
         self.rf.__exit__(*exc)
         return False
 

@@ -117,10 +117,12 @@ def _case_block_cyclic(meshes):
     out["chunks"] = [sp.gather(block_cyclic.block_cyclic_cholesky(
         sp.shard(A), m, block=64, chunk=c)).numpy() for c in (8, 5, 1)]
     for what, args in (("bad_n", (torch.eye(50), m)),
-                       ("bad_chunk", (sp.shard(A), m))):
+                       ("bad_chunk", (sp.shard(A), m)),
+                       ("bad_pipelined", (sp.shard(A), m))):
         try:
             block_cyclic.block_cyclic_cholesky(
-                *args, block=64, chunk=0 if what == "bad_chunk" else 8)
+                *args, block=64, chunk=0 if what == "bad_chunk" else 8,
+                pipelined=None if what == "bad_pipelined" else True)
             out[what] = False
         except ValueError:
             out[what] = True
@@ -136,9 +138,9 @@ def _case_distributed_cholesky(meshes):
         m = meshes[dp]
         sp = Sharding(m, (("dp", "r"), "c"))
         A = torch.as_tensor(_spd(n, 11))
-        L = distributed_chol.distributed_cholesky(sp.shard(A), m,
-                                                  chunk=chunk)
-        out[dp] = sp.gather(L).numpy()
+        L, calls = _counted(lambda: distributed_chol.distributed_cholesky(
+            sp.shard(A), m, chunk=chunk))
+        out[dp] = {"L": sp.gather(L).numpy(), "calls": calls}
     return out
 
 
@@ -189,7 +191,7 @@ def _case_relayout(meshes):
         out["bad_shape"] = False
     except ValueError:
         out["bad_shape"] = True
-    # ring covariance -> all_to_all -> chunked distributed Cholesky
+    # ring covariance -> all_to_all -> distributed Cholesky
     X = torch.as_tensor(_uniform(256, 2, 21))
     p = kops.init_params(d=2, lengthscale=1.2, noise_var=0.05)
     K_rows = ring.ring_train_covariance(p, rows.shard(X), m,
@@ -447,12 +449,13 @@ def _res(ranks, case, rank=0):
 
 @pytest.mark.parametrize("name", [c[0] for c in _bc_cases()])
 def test_block_cyclic_matches_single_device(ranks, jmesh, name):
-    """Every schedule, relayout and mesh shape against the float64 factor
-    at the JAX package's bars (reconstruction at rtol 1e-3, atol 1e-4);
-    the 256-row legacy case also against the JAX package's
-    block_cyclic_cholesky on the same mesh (its shard_map bodies take 23 s
-    (legacy) to 51 s (look-ahead) to compile on the faked mesh at 4
-    panels, so one twin runs: first, while the ranks work)."""
+    """Either `pipelined` value, each relayout and mesh shape against the
+    float64 factor at the JAX package's bars (reconstruction at rtol
+    1e-3, atol 1e-4); the 256-row pipelined=False case also against the
+    JAX package's block_cyclic_cholesky on the same mesh, its legacy body
+    (its shard_map bodies take 23 s (legacy) to 51 s (look-ahead) to
+    compile on the faked mesh at 4 panels, so one twin runs: first, while
+    the ranks work)."""
     import jax.numpy as jnp
     from cugp_tpu.parallel import block_cyclic as jbc
 
@@ -537,30 +540,34 @@ def test_host_shard_matches_jax():
 
 
 def test_block_cyclic_pipelined_matches_legacy(ranks):
+    """pipelined=False (JAX's legacy body there) runs the same look-ahead
+    body here: the same bits under each relayout."""
     bc = _res(ranks, "block_cyclic")
-    np.testing.assert_allclose(bc["pipe_a2a"]["L"], bc["legacy_a2a"]["L"],
-                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(bc["legacy_a2a"]["L"], bc["pipe_a2a"]["L"])
+    np.testing.assert_array_equal(bc["legacy_gather"]["L"],
+                                  bc["pipe_gather"]["L"])
     np.testing.assert_allclose(bc["pipe_a2a"]["L"], bc["pipe_gather"]["L"],
                                atol=1e-5)
 
 
 def test_block_cyclic_pipelined_collectives(ranks):
-    """The look-ahead body broadcasts (no all_reduce) at every depth; the
-    legacy body is the all_reduce-shaped one. The all_to_all relayout
-    moves the matrix with all_to_alls; "gather" all-gathers it."""
+    """The look-ahead body broadcasts (no all_reduce) at every depth and
+    under either `pipelined` value. The all_to_all relayout moves the
+    matrix with all_to_alls; "gather" all-gathers it."""
     for res in ranks.results():
         bc = res["block_cyclic"]
-        for name in ("pipe_a2a", "dp1_b128", "depth_nb32", "depth_nb64"):
+        for name in ("pipe_a2a", "legacy_a2a", "dp1_b128", "depth_nb32",
+                     "depth_nb64"):
             calls = bc[name]["calls"]
             assert calls.get("all_reduce", 0) == 0, (name, calls)
             assert calls["broadcast"] > 0 and calls["all_to_all"] > 0
-        assert bc["legacy_a2a"]["calls"]["all_reduce"] > 0
         assert bc["pipe_gather"]["calls"].get("all_to_all", 0) == 0
 
 
 def test_block_cyclic_chunk_and_rejections(ranks):
     """`chunk` (JAX's trace-size knob) changes nothing: chunks of 8, 5 and
-    1 give the same bits; bad sizes and a bad chunk raise."""
+    1 give the same bits; bad sizes, a bad chunk and a `pipelined` that is
+    no bool raise."""
     bc = _res(ranks, "block_cyclic")
     a, b, c = bc["chunks"]
     np.testing.assert_array_equal(a, b)
@@ -568,20 +575,26 @@ def test_block_cyclic_chunk_and_rejections(ranks):
     np.testing.assert_allclose(
         a, np.linalg.cholesky(_spd(768, 7).astype(np.float64)), rtol=2e-2,
         atol=2e-4)
-    assert bc["bad_n"] and bc["bad_chunk"]
+    assert bc["bad_n"] and bc["bad_chunk"] and bc["bad_pipelined"]
 
 
 @pytest.mark.parametrize("dp", [1, 2, 4])
 def test_distributed_cholesky(ranks, jmesh, dp):
-    """The chunked sweep (chunks across block edges) against float64 and,
-    on the 2 x 2 grid, against the JAX package's distributed_cholesky."""
+    """The block-cyclic factor (blocks of 192, 64 and 128 from chunks of
+    256, 96 and 200) against float64 and, on the 2 x 2 grid, against the
+    JAX package's distributed_cholesky (its chunked sweep); the factor
+    moves with broadcasts and all_to_alls, and no all_reduce."""
     import jax
     import jax.numpy as jnp
     from cugp_tpu.parallel import distributed_chol as jdc
 
     n, chunk = {1: (768, 256), 2: (512, 96), 4: (512, 200)}[dp]
     a = _spd(n, 11)
-    L = _res(ranks, "distributed_cholesky")[dp]
+    L = _res(ranks, "distributed_cholesky")[dp]["L"]
+    for res in ranks.results():
+        calls = res["distributed_cholesky"][dp]["calls"]
+        assert calls.get("all_reduce", 0) == 0, calls
+        assert calls["broadcast"] > 0 and calls["all_to_all"] > 0, calls
     np.testing.assert_allclose(
         L, np.linalg.cholesky(a.astype(np.float64)), rtol=2e-2, atol=2e-4)
     np.testing.assert_allclose(L @ L.T, a, rtol=1e-3, atol=1e-4)
@@ -662,7 +675,7 @@ def test_to_block_cyclic_matches_permutation(ranks):
 
 
 def test_config5_pipeline_ring_relayout_cholesky(ranks, jmesh):
-    """Ring covariance over ('r', 'c') -> all_to_all relayout -> chunked
+    """Ring covariance over ('r', 'c') -> all_to_all relayout ->
     distributed Cholesky == the single-device factor and the JAX
     package's pipeline (rtol 1e-4, atol 1e-5)."""
     import jax
